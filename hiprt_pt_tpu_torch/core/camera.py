@@ -1,0 +1,116 @@
+"""Camera model and batched primary-ray generation, mirroring
+``hiprt_pt_tpu.core.camera`` (reference: HIPRTCamera.h:16-49 NDC
+unprojection with sub-pixel jitter)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def perspective_matrix(vfov_rad: float, aspect: float, near: float, far: float):
+    """Right-handed OpenGL-style projection (matches GLTF camera conventions)."""
+    f = 1.0 / np.tan(vfov_rad / 2.0)
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = (far + near) / (near - far)
+    m[2, 3] = (2.0 * far * near) / (near - far)
+    m[3, 2] = -1.0
+    return m
+
+
+@dataclasses.dataclass
+class Camera:
+    """``view_inv``/``proj_inv`` feed ray generation; the forward matrices are
+    kept for reprojection. Matrices are (4,4) f32 tensors."""
+
+    view: torch.Tensor
+    view_inv: torch.Tensor
+    proj: torch.Tensor
+    proj_inv: torch.Tensor
+    position: torch.Tensor  # (3,)
+    vfov: float
+    near: float
+    far: float
+    do_jitter: bool = True
+
+    @classmethod
+    def create(cls, view: np.ndarray, vfov_rad: float, aspect: float,
+               near: float = 0.1, far: float = 100.0,
+               do_jitter: bool = True, device="cpu") -> "Camera":
+        proj = perspective_matrix(vfov_rad, aspect, near, far)
+        view = np.asarray(view, dtype=np.float32)
+        view_inv = np.linalg.inv(view)
+        return cls.from_matrices(view, view_inv, proj, np.linalg.inv(proj),
+                                 vfov_rad, near, far, do_jitter, device)
+
+    @classmethod
+    def from_matrices(cls, view, view_inv, proj, proj_inv, vfov, near, far,
+                      do_jitter=True, device="cpu") -> "Camera":
+        def t(x):
+            return torch.tensor(np.asarray(x, np.float32), device=device)
+
+        view_inv = np.asarray(view_inv, np.float32)
+        return cls(view=t(view), view_inv=t(view_inv), proj=t(proj),
+                   proj_inv=t(proj_inv), position=t(view_inv[:3, 3]),
+                   vfov=float(vfov), near=float(near), far=float(far),
+                   do_jitter=bool(do_jitter))
+
+    def to(self, device) -> "Camera":
+        return dataclasses.replace(
+            self, view=self.view.to(device), view_inv=self.view_inv.to(device),
+            proj=self.proj.to(device), proj_inv=self.proj_inv.to(device),
+            position=self.position.to(device))
+
+
+def camera_from_lookat(eye, target, up=(0.0, 1.0, 0.0), vfov_deg=45.0,
+                       aspect=1.0, device="cpu") -> Camera:
+    eye = np.asarray(eye, dtype=np.float32)
+    target = np.asarray(target, dtype=np.float32)
+    up = np.asarray(up, dtype=np.float32)
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right = right / np.linalg.norm(right)
+    true_up = np.cross(right, fwd)
+    # camera looks down -Z in view space (GL convention)
+    view_inv = np.eye(4, dtype=np.float32)
+    view_inv[:3, 0] = right
+    view_inv[:3, 1] = true_up
+    view_inv[:3, 2] = -fwd
+    view_inv[:3, 3] = eye
+    view = np.linalg.inv(view_inv)
+    return Camera.create(view, np.deg2rad(vfov_deg), aspect, device=device)
+
+
+def generate_camera_rays(camera: Camera, width: int, height: int,
+                         jitter: torch.Tensor | None = None,
+                         px: torch.Tensor | None = None,
+                         py: torch.Tensor | None = None):
+    """Primary rays. Returns (origins (N,3), directions (N,3)); pixel (0,0)
+    is the bottom left. jitter: optional (N,2) sub-pixel offsets in [0,1);
+    px/py: explicit pixel coordinates (default row-major)."""
+    dev = camera.view_inv.device
+    if px is None or py is None:
+        idx = torch.arange(width * height, dtype=torch.int32, device=dev)
+        px, py = idx % width, idx // width
+    n = px.shape[0]
+    pxf = px.to(torch.float32)
+    pyf = py.to(torch.float32)
+    if jitter is None or not camera.do_jitter:
+        jx = jy = 0.5
+    else:
+        jx, jy = jitter[:, 0], jitter[:, 1]
+    ndc_x = (pxf + jx) / width * 2.0 - 1.0
+    ndc_y = (pyf + jy) / height * 2.0 - 1.0
+    ones = torch.ones_like(ndc_x)
+    ndc = torch.stack([ndc_x, ndc_y, -ones, ones], dim=-1)
+    view_pt = ndc @ camera.proj_inv.T
+    view_pt = view_pt[:, :3] / view_pt[:, 3:4]
+    dirs = view_pt @ camera.view_inv[:3, :3].T
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    origins = camera.position.expand(n, 3).contiguous()
+    return origins, dirs

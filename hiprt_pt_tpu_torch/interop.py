@@ -1,0 +1,104 @@
+"""Carry scenes, BVHs and render states across from the JAX package.
+
+The JAX package's ``SceneData``, ``BVHData`` and ``RenderState`` are given as
+dicts of numpy arrays keyed by field name (nested dicts for the material
+bank and the G-buffers), so this module imports nothing of JAX. ``to_numpy``
+turns a port dataclass back into such a dict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .accel.build import BVHData
+from .assets.scene import SceneData
+from .core.material import FIELD_NAMES, MaterialBank
+from .core.state import GBuffer, RenderState
+
+
+def _t(x, device):
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def scene_from_numpy(d: dict, device="cpu") -> SceneData:
+    """SceneData from the JAX package's scene fields. Envmaps and textures
+    are not ported, so both must be absent."""
+    if d.get("envmap") is not None or d.get("textures") is not None:
+        raise NotImplementedError("envmaps and textures are not ported yet")
+    mats = MaterialBank(**{k: _t(d["materials"][k], device) for k in FIELD_NAMES})
+    kw = {}
+    for f in dataclasses.fields(SceneData):
+        if f.name in ("materials", "envmap", "textures"):
+            continue
+        v = d[f.name]
+        if f.name == "num_emissives":
+            kw[f.name] = int(np.asarray(v))
+        elif f.name == "emissive_total_area":
+            kw[f.name] = float(np.asarray(v))
+        else:
+            kw[f.name] = _t(v, device)
+    return SceneData(materials=mats, **kw)
+
+
+def bvh4_depth(nodes4: np.ndarray) -> int:
+    """Max internal-node depth (root = 1) of a BVH4 table: internal child
+    refs are > 0 (ref 0 is the root, which is nobody's child, and marks an
+    empty slot)."""
+    refs = np.ascontiguousarray(nodes4[:, 24:28]).view(np.int32)
+    frontier = np.zeros((1,), np.int64)
+    depth = 0
+    while frontier.size:
+        depth += 1
+        ch = refs[frontier].ravel()
+        frontier = ch[ch > 0].astype(np.int64)
+    return depth
+
+
+def bvh_from_numpy(d: dict, device="cpu") -> BVHData:
+    """BVHData from the JAX package's ``nodes4``, ``leaf_rows`` and
+    ``tri_rows``; the BVH4 depth is measured here when not given."""
+    nodes4 = np.asarray(d["nodes4"], np.float32)
+    depth4 = d.get("depth4")
+    return BVHData(
+        nodes4=_t(nodes4, device),
+        leaf_rows=_t(np.asarray(d["leaf_rows"], np.float32), device),
+        tri_rows=_t(np.asarray(d["tri_rows"], np.float32), device),
+        depth4=int(depth4) if depth4 is not None else bvh4_depth(nodes4),
+    )
+
+
+def _gbuffer(d: dict, device) -> GBuffer:
+    return GBuffer(**{f.name: _t(d[f.name], device)
+                      for f in dataclasses.fields(GBuffer)})
+
+
+def state_from_numpy(d: dict, device="cpu") -> RenderState:
+    """RenderState from the JAX package's state fields (without ReSTIR)."""
+    if d.get("restir") is not None:
+        raise NotImplementedError("ReSTIR reservoirs are not ported yet")
+    kw = {}
+    for f in dataclasses.fields(RenderState):
+        v = d[f.name]
+        if f.name in ("gbuffer", "prev_gbuffer"):
+            kw[f.name] = _gbuffer(v, device)
+        elif f.name in ("sample_count", "seed"):
+            kw[f.name] = int(np.asarray(v))
+        elif f.name in ("rays_traced", "nb_pixels_converged"):
+            kw[f.name] = torch.tensor(int(np.asarray(v)), dtype=torch.int64,
+                                      device=device)
+        else:
+            kw[f.name] = _t(v, device)
+    return RenderState(**kw)
+
+
+def to_numpy(obj):
+    """A port dataclass (or tensor) → nested dict of numpy arrays."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if dataclasses.is_dataclass(obj):
+        return {f.name: to_numpy(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    return obj

@@ -1,0 +1,52 @@
+"""BSDF dispatch by the static override option, mirroring
+``hiprt_pt_tpu.models.dispatcher`` (reference: Dispatcher.h:18-68).
+
+  bsdf_eval(options, mats, n, wo, wi, aux)    -> (f (N,3), pdf (N,))
+  bsdf_sample(options, mats, n, wo, rng, aux) -> (rng, wi, f, pdf, sample_aux)
+
+The LAMBERTIAN and OREN_NAYAR overrides are ported. The principled BSDF is
+not ported yet: ROADMAP, "Modules still to port", the ``models/`` principled
+stack with its LUTs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import rng as rng_mod
+from ..core.settings import BSDFOverride, RenderOptions
+from . import lambert, oren_nayar
+
+
+def _principled_missing():
+    return NotImplementedError(
+        "the principled BSDF is not ported yet (ROADMAP: models/ principled "
+        "stack with LUTs); use bsdf_override=LAMBERTIAN or OREN_NAYAR")
+
+
+def _no_refract(n_rays, device):
+    return {"refracted": torch.zeros((n_rays,), dtype=torch.bool, device=device)}
+
+
+def bsdf_eval(options: RenderOptions, mats, n, wo, wi, aux=None):
+    ov = options.bsdf_override
+    if ov == BSDFOverride.LAMBERTIAN:
+        return lambert.eval_pdf(mats.base_color, n, wo, wi)
+    if ov == BSDFOverride.OREN_NAYAR:
+        return oren_nayar.eval_pdf(
+            mats.base_color, mats.oren_nayar_sigma, n, wo, wi)
+    raise _principled_missing()
+
+
+def bsdf_sample(options: RenderOptions, mats, n, wo, rng_state, aux=None):
+    ov = options.bsdf_override
+    if ov == BSDFOverride.LAMBERTIAN:
+        rng_state, u1, u2 = rng_mod.next_float2(rng_state)
+        wi, f, pdf = lambert.sample(mats.base_color, n, wo, u1, u2)
+        return rng_state, wi, f, pdf, _no_refract(n.shape[0], n.device)
+    if ov == BSDFOverride.OREN_NAYAR:
+        rng_state, u1, u2 = rng_mod.next_float2(rng_state)
+        wi, f, pdf = oren_nayar.sample(
+            mats.base_color, mats.oren_nayar_sigma, n, wo, u1, u2)
+        return rng_state, wi, f, pdf, _no_refract(n.shape[0], n.device)
+    raise _principled_missing()

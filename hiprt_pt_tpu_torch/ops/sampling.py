@@ -1,0 +1,67 @@
+"""Sampling primitives and MIS heuristics, mirroring
+``hiprt_pt_tpu.ops.sampling`` (reference: Sampling.h, ONB.h, LightUtils.h)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+TWO_PI = 2.0 * math.pi
+INV_PI = 1.0 / math.pi
+
+
+def build_onb(n):
+    """Branchless ONB from a unit normal (Duff et al. 2017).
+    n: (..., 3) → (tangent, bitangent)."""
+    s = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack(
+        [1.0 + s * n[..., 0] * n[..., 0] * a, s * b, -s * n[..., 0]], dim=-1
+    )
+    bt = torch.stack([b, s + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
+    return t, bt
+
+
+def to_world(local_dir, n):
+    """Local (z-up) direction → world around normal n."""
+    t, b = build_onb(n)
+    return (local_dir[..., 0:1] * t + local_dir[..., 1:2] * b
+            + local_dir[..., 2:3] * n)
+
+
+def to_local(world_dir, n):
+    t, b = build_onb(n)
+    return torch.stack(
+        [(world_dir * t).sum(dim=-1), (world_dir * b).sum(dim=-1),
+         (world_dir * n).sum(dim=-1)],
+        dim=-1,
+    )
+
+
+def sample_cosine_hemisphere(n, u1, u2):
+    """Cosine-weighted hemisphere around n. Returns (dir, pdf)."""
+    r = torch.sqrt(u1)
+    phi = TWO_PI * u2
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = torch.sqrt((1.0 - u1).clamp_min(0.0))
+    local = torch.stack([x, y, z], dim=-1)
+    d = to_world(local, n)
+    pdf = z.clamp_min(1e-8) * INV_PI
+    return d, pdf
+
+
+def sample_triangle(v0, e1, e2, u1, u2):
+    """Uniform point on a triangle (sqrt warp). Returns (point, unnormalized
+    geometric normal)."""
+    su1 = torch.sqrt(u1)
+    b0 = 1.0 - su1
+    b1 = u2 * su1
+    p = v0 + e1 * b0[..., None] + e2 * b1[..., None]
+    return p, torch.linalg.cross(e1, e2)
+
+
+def balance_heuristic(pdf_a, pdf_b):
+    return pdf_a / (pdf_a + pdf_b).clamp_min(1e-12)

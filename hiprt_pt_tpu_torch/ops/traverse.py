@@ -1,0 +1,175 @@
+"""BVH traversal — the ``HitRecord`` contract and the plain PyTorch version of
+the port's two traversal kernels (ops/cuda_traverse.py).
+
+The contract is the JAX package's (``hiprt_pt_tpu.ops.traverse``): rays
+``o, d`` (N, 3), ``t_min``/``t_max`` scalar or (N,), ``active`` (N,) bool;
+the result is ``HitRecord(t, prim, u, v)`` where a miss (and every inactive
+ray) is ``prim = -1, t = inf``, and any-hit reports occlusion in
+``prim >= 0`` with ``u = v = 0``.
+
+The plain version is a vectorized per-ray stack walk over ``nodes4`` +
+``leaf_rows`` with exact f32 triangles: every iteration pops one entry per
+live ray, slab-tests the four children of the rays that popped a node and
+pushes the hits far-to-near, and intersects the up-to-12 triangles of the
+rays that popped a leaf. An equal-t tie between two triangles that a walk
+tests goes to the smaller prim id, in the kernels too, so the visit order
+does not pick the winner; a walk that culls the second triangle's box at
+exactly that t still keeps the first (rare: one ray in two million 1080p
+camera rays on the stress interior). It runs on any device; the render
+path sends only CPU tensors to it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .intersect import triangle_test
+
+STACK_SIZE = 64
+LEAF_TRIS = 12
+
+
+@dataclasses.dataclass
+class HitRecord:
+    t: torch.Tensor     # (N,) f32, inf = miss
+    prim: torch.Tensor  # (N,) i32, -1 = miss
+    u: torch.Tensor     # (N,) f32 barycentric
+    v: torch.Tensor     # (N,) f32
+
+
+def empty_hit_record(n: int, device="cpu") -> HitRecord:
+    """All-miss record."""
+    return HitRecord(
+        t=torch.full((n,), float("inf"), dtype=torch.float32, device=device),
+        prim=torch.full((n,), -1, dtype=torch.int32, device=device),
+        u=torch.zeros((n,), dtype=torch.float32, device=device),
+        v=torch.zeros((n,), dtype=torch.float32, device=device),
+    )
+
+
+def check_stack_depth(bvh) -> None:
+    """A walk holds at most 3 siblings per level plus the 4 children of the
+    deepest node: 3·depth4 + 1 entries must fit the stack."""
+    need = 3 * int(bvh.depth4) + 1
+    if need > STACK_SIZE:
+        raise ValueError(
+            f"BVH4 depth {bvh.depth4} needs a {need}-entry traversal stack; "
+            f"the traversal holds {STACK_SIZE}")
+
+
+def per_ray(x, n: int, device) -> torch.Tensor:
+    """Scalar or (N,) → contiguous (N,) f32 on ``device``."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
+
+
+def inverse_direction(d: torch.Tensor) -> torch.Tensor:
+    """1/d with the JAX package's guard for near-zero components."""
+    return torch.where(d.abs() > 1e-12, 1.0 / d, torch.sign(d) * 1e12 + 1e12)
+
+
+def slab_test(boxes, o, inv, best_t):
+    """boxes (k, 4, 6) [min xyz, max xyz], rays (k, 3), best_t (k,).
+    Returns (hit (k, 4), t_entry (k, 4)); an empty (NaN) slot never hits."""
+    t0 = (boxes[..., 0:3] - o[:, None, :]) * inv[:, None, :]
+    t1 = (boxes[..., 3:6] - o[:, None, :]) * inv[:, None, :]
+    tsm = torch.minimum(t0, t1)
+    tbg = torch.maximum(t0, t1)
+    t_entry = torch.maximum(torch.maximum(tsm[..., 0], tsm[..., 1]),
+                            tsm[..., 2].clamp_min(0.0))
+    t_exit = torch.minimum(torch.minimum(tbg[..., 0], tbg[..., 1]),
+                           torch.minimum(tbg[..., 2], best_t[:, None]))
+    hit = (t_entry <= t_exit) & ~torch.isnan(boxes[..., 0])
+    return hit, t_entry
+
+
+def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
+             any_hit: bool = False) -> HitRecord:
+    """Closest-hit (or any-hit) traversal for N rays, plain PyTorch."""
+    check_stack_depth(bvh)
+    n = o.shape[0]
+    dev = o.device
+    rec = empty_hit_record(n, dev)
+    if n == 0:
+        return rec
+    inv = inverse_direction(d)
+    t_min = per_ray(t_min, n, dev)
+    best_t = per_ray(t_max, n, dev).clone()
+    act = (torch.ones((n,), dtype=torch.bool, device=dev) if active is None
+           else active.to(torch.bool))
+
+    boxes4 = bvh.nodes4[:, :24].reshape(-1, 4, 6)
+    refs4 = bvh.nodes4[:, 24:28].contiguous().view(torch.int32)
+    leaf_prims = bvh.leaf_rows[:, 108:120].contiguous().view(torch.int32)
+
+    stack = torch.zeros((n, STACK_SIZE), dtype=torch.int32, device=dev)
+    sp = act.to(torch.int64)  # every live stack starts as [root]
+    alive = torch.nonzero(sp > 0).squeeze(1)
+    while alive.numel():
+        sp[alive] -= 1
+        ref = stack[alive, sp[alive]]
+        is_node = ref >= 0
+
+        ni = alive[is_node]
+        if ni.numel():
+            r = ref[is_node].long()
+            hit, t_entry = slab_test(boxes4[r], o[ni], inv[ni], best_t[ni])
+            # push hit children far-to-near so the nearest is popped first
+            key = torch.where(hit, t_entry, torch.full_like(t_entry, -1.0))
+            key, order = torch.sort(key, dim=1, descending=True)
+            child = refs4[r].gather(1, order)
+            for j in range(4):
+                m = key[:, j] >= 0.0
+                rows = ni[m]
+                stack[rows, sp[rows]] = child[m, j]
+                sp[rows] += 1
+
+        li = alive[~is_node]
+        if li.numel():
+            leaf = -(ref[~is_node].long() + 1)
+            rows = bvh.leaf_rows[leaf]
+            tri = rows[:, :108].reshape(-1, LEAF_TRIS, 9)
+            ol, dl = o[li], d[li]
+            ok, t, u, v = triangle_test(
+                ol[:, 0:1], ol[:, 1:2], ol[:, 2:3],
+                dl[:, 0:1], dl[:, 1:2], dl[:, 2:3],
+                *(tri[..., c] for c in range(9)))
+            slot = torch.arange(LEAF_TRIS, device=dev)[None, :]
+            bt = best_t[li][:, None]
+            bp = rec.prim[li][:, None]
+            prims = leaf_prims[leaf]
+            # a hit beats the best so far; an equal-t tie goes to the smaller
+            # prim id, so the result does not depend on the visit order
+            hit = (ok & (slot < rows[:, 121:122]) & (t > t_min[li, None])
+                   & ((t < bt) | ((t == bt) & (bp >= 0) & (prims < bp))))
+            tk = torch.where(hit, t, torch.full_like(t, float("inf")))
+            first = hit & (tk == tk.amin(dim=1, keepdim=True))
+            k = torch.where(first, prims, torch.iinfo(torch.int32).max
+                            ).argmin(dim=1, keepdim=True)
+            found = hit.any(dim=1)
+            hl = li[found]
+            kf = k[found]
+            best_t[hl] = tk[found].gather(1, kf)[:, 0]
+            rec.prim[hl] = prims[found].gather(1, kf)[:, 0]
+            rec.u[hl] = u[found].gather(1, kf)[:, 0]
+            rec.v[hl] = v[found].gather(1, kf)[:, 0]
+            if any_hit:
+                sp[hl] = 0
+        alive = torch.nonzero(sp > 0).squeeze(1)
+
+    miss = rec.prim < 0
+    rec.t = torch.where(miss, torch.full_like(best_t, float("inf")), best_t)
+    if any_hit:
+        rec.u.zero_()
+        rec.v.zero_()
+    return rec
+
+
+def closest_hit(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None) -> HitRecord:
+    return traverse(bvh, o, d, t_min, t_max, active, any_hit=False)
+
+
+def occluded(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None) -> torch.Tensor:
+    """Shadow-ray any-hit test. Returns (N,) bool."""
+    return traverse(bvh, o, d, t_min, t_max, active, any_hit=True).prim >= 0

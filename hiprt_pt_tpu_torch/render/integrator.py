@@ -1,0 +1,380 @@
+"""Wavefront path-tracing integrator, mirroring
+``hiprt_pt_tpu.render.integrator``.
+
+- ``camera_rays_pass`` ≡ the reference's CameraRays kernel: jittered primary
+  rays, first-hit trace, G-buffer write.
+- ``render_sample`` ≡ the FullPathTracer megakernel: NEE with MIS per vertex,
+  BSDF sampling, the nested-dielectric interior stack, russian roulette,
+  miss → ambient, NaN guard.
+
+The whole image is one wavefront of N rays in the tile-major pixel order.
+Traversal routes by ray coherence: camera rays and the first bounce's shadow
+rays go through the packet kernel ``trace_coherent``, every other ray through
+``trace_incoherent``; on CPU tensors both run the plain PyTorch walk. The RNG
+draws happen in the JAX package's order: the camera pass draws jx, jy; each
+bounce draws u_alpha, then the NEE draws, then the BSDF sample's pair, then
+u_rr. The host syncs once per bounce, to skip bounces with no live ray.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import rng as rng_mod
+from ..core.camera import generate_camera_rays
+from ..core.settings import (
+    BSDFOverride,
+    InteriorStackStrategy,
+    LightSamplingStrategy,
+    RenderOptions,
+    RenderSettings,
+    RussianRouletteMethod,
+    WorldSettings,
+)
+from ..core.state import GBuffer
+from ..lights.envmap_sampling import eval_envmap
+from ..lights.light_sampling import (
+    emissive_pdf_of_direction,
+    sample_emissive_triangle,
+)
+from ..models import nested_dielectrics as nd
+from ..models.dispatcher import bsdf_eval, bsdf_sample
+from ..ops.cuda_traverse import trace_coherent, trace_incoherent
+from ..ops.intersect import offset_ray_origin
+from ..ops.pixel_order import pixel_coords
+from ..ops.sampling import balance_heuristic
+from ..ops.tonemap import luminance
+
+
+def check_supported(options: RenderOptions, scene) -> None:
+    """Raise for the options and scene features the port does not carry yet
+    (each names its ROADMAP item)."""
+    if options.bsdf_override not in (BSDFOverride.LAMBERTIAN,
+                                     BSDFOverride.OREN_NAYAR):
+        raise NotImplementedError(
+            "the principled BSDF is not ported yet (ROADMAP: models/ "
+            "principled stack with LUTs); use bsdf_override=LAMBERTIAN")
+    if options.direct_light_sampling in (LightSamplingStrategy.RIS_BSDF_LIGHT,
+                                         LightSamplingStrategy.RESTIR_DI):
+        raise NotImplementedError(
+            "RIS and ReSTIR DI are not ported yet (ROADMAP: lights/ris.py, "
+            "restir/); use direct_light_sampling=MIS")
+    if options.do_dispersion:
+        raise NotImplementedError(
+            "dispersion is not ported yet (ROADMAP: models/dispersion.py); "
+            "use do_dispersion=False")
+    if scene.textures is not None or scene.envmap is not None:
+        raise NotImplementedError(
+            "textures and envmaps are not ported yet (ROADMAP: ops/texture.py, "
+            "assets/envmap.py)")
+    if options.interior_stack_strategy != InteriorStackStrategy.WITH_PRIORITIES:
+        raise NotImplementedError(
+            "only the WITH_PRIORITIES interior stack is ported (ROADMAP: "
+            "models/ principled stack)")
+    if options.white_furnace_mode:
+        raise NotImplementedError(
+            "white-furnace mode is not ported yet (ROADMAP: models/ "
+            "principled stack, white-furnace checks)")
+
+
+def _nee_enabled(options: RenderOptions) -> bool:
+    return options.direct_light_sampling in (LightSamplingStrategy.UNIFORM_ONE,
+                                             LightSamplingStrategy.MIS)
+
+
+def _interpolate_hit(scene, prim, u, v, ray_d):
+    """Shading attributes of a batch of hits from the packed tri_data rows:
+    (shading normal, geometric normal oriented to it, uv, material id)."""
+    row = scene.tri_data[prim.clamp_min(0).long()]  # (N, 32)
+    w = 1.0 - u - v
+    nx = row[:, 0] * w + row[:, 3] * u + row[:, 6] * v
+    ny = row[:, 1] * w + row[:, 4] * u + row[:, 7] * v
+    nz = row[:, 2] * w + row[:, 5] * u + row[:, 8] * v
+    inv_len = 1.0 / torch.sqrt((nx * nx + ny * ny + nz * nz).clamp_min(1e-24))
+    ns = torch.stack([nx * inv_len, ny * inv_len, nz * inv_len], dim=-1)
+    gx, gy, gz = row[:, 25], row[:, 26], row[:, 27]
+    flip = torch.where(gx * nx + gy * ny + gz * nz < 0.0, -1.0, 1.0)
+    ng = torch.stack([gx * flip, gy * flip, gz * flip], dim=-1)
+    uv = torch.stack(
+        [row[:, 9] * w + row[:, 11] * u + row[:, 13] * v,
+         row[:, 10] * w + row[:, 12] * u + row[:, 14] * v], dim=-1)
+    mat_id = row[:, 24].contiguous().view(torch.int32)
+    return ns, ng, uv, mat_id
+
+
+def _face_forward(n, d_in):
+    """Flip normal to the side the ray arrives from."""
+    return torch.where((n * d_in).sum(dim=-1, keepdim=True) > 0.0, -n, n)
+
+
+def _clamp_contribution(contrib, clamp_val: float):
+    """Per-category firefly clamp; 0 = disabled."""
+    if clamp_val <= 0.0:
+        return contrib
+    m = contrib.amax(dim=-1, keepdim=True)
+    scale = torch.where(m > clamp_val, clamp_val / m.clamp_min(1e-12), 1.0)
+    return contrib * scale
+
+
+def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
+                     width: int, height: int, sample_number: int, rng_state,
+                     options: RenderOptions = RenderOptions()):
+    """Primary-ray pass filling the G-buffer.
+    Returns (rng_state, GBuffer, pixel_active)."""
+    dev = rng_state.device
+    rng_state, jx = rng_mod.next_float(rng_state)
+    rng_state, jy = rng_mod.next_float(rng_state)
+    jitter = torch.stack([jx, jy], dim=-1)
+    # tile-major order → each 128-ray packet is one 16x8 tile
+    px, py = pixel_coords(width, height, dev)
+    o, d = generate_camera_rays(camera, width, height, jitter, px, py)
+
+    active = torch.ones((width * height,), dtype=torch.bool, device=dev)
+    if settings.render_low_resolution:
+        sc = settings.low_resolution_scale
+        active = ((px % sc) == 0) & ((py % sc) == 0)
+    if settings.enable_adaptive_sampling:
+        active = active & ~state.pixel_converged
+
+    rec = trace_coherent(bvh, o, d, t_min=0.0, active=active)
+    hit = rec.prim >= 0
+    ns, ng, uv, mat_id = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
+    pos = o + d * torch.where(torch.isfinite(rec.t), rec.t, 0.0)[..., None]
+    backface = (ns * d).sum(dim=-1) > 0.0
+    gbuf = GBuffer(
+        position=pos,
+        shading_normal=torch.where(hit[..., None], _face_forward(ns, d), 0.0),
+        geometric_normal=torch.where(hit[..., None], _face_forward(ng, d), 0.0),
+        view_direction=-d,
+        material_id=torch.where(hit, mat_id, -1),
+        prim_index=rec.prim,
+        uv=uv,
+        t=rec.t,
+        ray_dir=d,
+        backface=backface,
+    )
+    return rng_state, gbuf, active
+
+
+def _direct_lighting(options: RenderOptions, scene, bvh,
+                     settings: RenderSettings, mats, p, ns, ng, wo,
+                     rng_state, active, eta_rel=None,
+                     shadow_coherent: bool = False):
+    """NEE at one path vertex: power-sampled emissive triangles, MIS-weighted
+    against the BSDF. Returns (rng_state, radiance (N,3), shadow-ray count
+    (() int64 tensor))."""
+    contrib = torch.zeros_like(p)
+    n_shadow = torch.zeros((), dtype=torch.int64, device=p.device)
+    if not _nee_enabled(options):
+        return rng_state, contrib, n_shadow
+    n_ls = max(int(settings.number_of_light_samples), 1)
+    inv_ls = 1.0 / n_ls
+    occluded = trace_coherent if shadow_coherent else trace_incoherent
+    for _ in range(n_ls):
+        rng_state, ls = sample_emissive_triangle(scene, p, rng_state)
+        wi = ls["wi"]
+        cos_i = (ns * wi).sum(dim=-1)
+        f, bsdf_pdf = bsdf_eval(options, mats, ns, wo, wi,
+                                {"eta_rel": eta_rel})
+        cand = active & ls["valid"] & (cos_i > 0.0) & (ls["pdf"] > 0.0)
+        so = offset_ray_origin(p, ng, wi)
+        shadow_blocked = occluded(bvh, so, wi, t_min=1e-4,
+                                  t_max=ls["dist"] * (1.0 - 1e-3),
+                                  active=cand, any_hit=True).prim >= 0
+        n_shadow = n_shadow + cand.sum()
+        vis = cand & ~shadow_blocked
+        c = f * ls["radiance"] * (cos_i / ls["pdf"].clamp_min(1e-12))[..., None]
+        if options.direct_light_sampling == LightSamplingStrategy.MIS:
+            c = c * balance_heuristic(ls["pdf"], bsdf_pdf)[..., None]
+        if settings.minimum_light_contribution > 0.0:
+            strong = luminance(c) >= settings.minimum_light_contribution
+            vis = vis & strong
+        c = _clamp_contribution(c, settings.direct_contribution_clamp)
+        contrib = contrib + torch.where(vis[..., None], c * inv_ls, 0.0)
+    return rng_state, contrib, n_shadow
+
+
+def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
+                  settings: RenderSettings, gbuffer: GBuffer, pixel_active,
+                  rng_state):
+    """Trace one full path per pixel from the G-buffer's first hit.
+
+    Returns (rng_state, radiance (N,3), aov_albedo (N,3), aov_normal (N,3),
+    rays traced by this sample excluding the camera pass (() int64))."""
+    check_supported(options, scene)
+    n_rays = gbuffer.position.shape[0]
+    dev = gbuffer.position.device
+    mats_all = scene.materials
+    d0 = gbuffer.ray_dir
+    hit0 = gbuffer.prim_index >= 0
+
+    radiance = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
+    # miss at the primary ray → ambient, weight 1
+    env0 = eval_envmap(world, scene.envmap, d0)
+    radiance = radiance + torch.where((~hit0 & pixel_active)[..., None], env0, 0.0)
+    # emission at the primary hit, weight 1
+    mats0 = mats_all.at_indices(gbuffer.material_id.clamp_min(0)).make_safe()
+    em0 = mats0.effective_emission()
+    radiance = radiance + torch.where((hit0 & pixel_active)[..., None], em0, 0.0)
+    aov_albedo = torch.where(hit0[..., None], mats0.base_color, env0.clamp(0.0, 1.0))
+    aov_normal = torch.where(hit0[..., None], gbuffer.shading_normal, 0.0)
+
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    active = hit0 & pixel_active
+    p = gbuffer.position
+    ns = gbuffer.shading_normal
+    ng = gbuffer.geometric_normal
+    wo = gbuffer.view_direction
+    mat_id = gbuffer.material_id.clamp_min(0)
+    stack_mat, stack_pri = nd.empty_stack(
+        n_rays, options.nested_dielectrics_stack_size, dev)
+    entering = ~gbuffer.backface
+
+    n_bounces = min(options.max_bounces_static, int(settings.nb_bounces))
+    for bounce in range(n_bounces):
+        # the one host sync of a bounce: a bounce with no live ray is skipped
+        # and leaves the RNG stream untouched, as in the JAX package
+        if not bool(active.any()):
+            break
+        mats = mats_all.at_indices(mat_id).make_safe()
+        eta_mat = mats.ior
+
+        rng_state, u_alpha = rng_mod.next_float(rng_state)
+        alpha_skip = active & (u_alpha >= mats.alpha_opacity)
+        if not settings.do_alpha_testing:
+            alpha_skip = torch.zeros_like(active)
+
+        # --- nested dielectrics: true vs false interfaces, relative IOR ---
+        # (Schmidt 2002 priorities, reference: NestedDielectrics.h)
+        is_trans = mats.specular_transmission > 0.0
+        top_pri = nd.top_priority(stack_pri)
+        top_mat = nd.top_material(stack_mat, stack_pri)
+        m_pri = mats.dielectric_priority.to(torch.int32)
+        false_enter = is_trans & entering & (m_pri < top_pri)
+        false_exit = is_trans & ~entering & (top_mat != mat_id) & (top_pri >= 0)
+        false_interface = (false_enter | false_exit) & active
+        alpha_skip = alpha_skip | false_interface
+
+        def ior_of(ids):
+            return torch.where(ids >= 0, mats_all.ior[ids.clamp_min(0).long()], 1.0)
+
+        n_outside_enter = ior_of(top_mat)
+        excl_mat, excl_pri = nd.top_excluding(stack_mat, stack_pri, mat_id)
+        n_outside_exit = torch.where(excl_pri >= 0, ior_of(excl_mat), 1.0)
+
+        # --- NEE ---
+        eta_c = eta_mat.clamp_min(1.0 + 1e-3)
+        eta_rel = torch.where(entering, eta_c / n_outside_enter,
+                              n_outside_exit / eta_c).clamp_min(1e-3)
+        nee_active = active & ~alpha_skip
+        rng_state, direct, n_shadow = _direct_lighting(
+            options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
+            nee_active, eta_rel, shadow_coherent=(bounce == 0))
+        radiance = radiance + torch.where(active[..., None], throughput * direct, 0.0)
+
+        # --- BSDF sample + bounce ray ---
+        rng_state, wi, f, bsdf_pdf, s_aux = bsdf_sample(
+            options, mats, ns, wo, rng_state, {"eta_rel": eta_rel})
+        wi = torch.where(alpha_skip[..., None], -wo, wi)
+        cos_i = (ns * wi).sum(dim=-1)
+        valid_sample = active & ((bsdf_pdf > 1e-9) | alpha_skip)
+        factor = torch.where(alpha_skip, 1.0,
+                             cos_i.abs() / bsdf_pdf.clamp_min(1e-12))
+        new_throughput = throughput * torch.where(
+            valid_sample[..., None],
+            torch.where(alpha_skip[..., None], 1.0, f) * factor[..., None],
+            0.0)
+
+        # --- interior stack update + Beer-Lambert medium from the new top ---
+        refracted = s_aux["refracted"] & ~alpha_skip
+        not_thin = mats.thin_walled < 0.5
+        crossed = valid_sample & is_trans & not_thin & (refracted | false_interface)
+        stack_mat, stack_pri = nd.push(stack_mat, stack_pri, mat_id, m_pri,
+                                       crossed & entering)
+        stack_mat, stack_pri = nd.remove(stack_mat, stack_pri, mat_id,
+                                         crossed & ~entering)
+        new_top = nd.top_material(stack_mat, stack_pri)
+        med = mats_all.fields_at(new_top.clamp_min(0),
+                                 ("absorption_color", "absorption_at_distance"))
+        sigma_top = -torch.log(med["absorption_color"].clamp(1.0 / 512.0, 1.0)) \
+            / med["absorption_at_distance"].clamp_min(1e-4)[..., None]
+        medium_sigma = torch.where((new_top >= 0)[..., None], sigma_top, 0.0)
+
+        # --- russian roulette (survive probability from the pre-attenuation
+        # throughput, or the Arnold-2014 attenuation ratio) ---
+        rng_state, u_rr = rng_mod.next_float(rng_state)
+        if settings.do_russian_roulette and bounce >= settings.rr_min_depth:
+            tp_max = throughput.amax(dim=-1)
+            if settings.rr_method == int(RussianRouletteMethod.ARNOLD):
+                survive_p = torch.sqrt(new_throughput.amax(dim=-1)
+                                       / tp_max.clamp_min(1e-12))
+            else:
+                survive_p = tp_max
+            survive_p = survive_p.clamp_max(1.0)
+            killed = u_rr >= survive_p
+            increase = 1.0 / survive_p.clamp_min(1e-12)
+            if settings.rr_throughput_clamp > 0.0:
+                increase = increase.clamp_max(settings.rr_throughput_clamp)
+            new_throughput = torch.where((~killed)[..., None],
+                                         new_throughput * increase[..., None],
+                                         new_throughput)
+            valid_sample = valid_sample & ~killed
+
+        # --- trace the bounce ray ---
+        o_next = offset_ray_origin(p, ng, wi)
+        rec = trace_incoherent(bvh, o_next, wi, t_min=0.0, active=valid_sample)
+        hit = rec.prim >= 0
+        ns2, ng2, _uv2, mat_id2 = _interpolate_hit(scene, rec.prim, rec.u,
+                                                   rec.v, wi)
+        t_b = rec.t
+
+        # Beer-Lambert absorption along the segment inside a medium
+        seg_t = torch.where(hit, t_b, 0.0)
+        new_throughput = new_throughput * torch.exp(-medium_sigma * seg_t[..., None])
+
+        # BSDF ray hits an emitter → MIS-weighted emission
+        light_pdf, is_em = emissive_pdf_of_direction(scene, o_next, rec.prim,
+                                                     t_b, wi)
+        if options.direct_light_sampling == LightSamplingStrategy.MIS:
+            w_em = balance_heuristic(bsdf_pdf, light_pdf)
+        elif _nee_enabled(options):
+            # pure NEE: emitter hits are already counted by the light samples
+            w_em = torch.zeros_like(bsdf_pdf)
+        else:
+            w_em = torch.ones_like(bsdf_pdf)
+        # a pass-through ray skipped NEE at its vertex → full emitter weight
+        w_em = torch.where(alpha_skip, 1.0, w_em)
+        em = mats_all.fields_at(
+            scene.material_ids[rec.prim.clamp_min(0).long()],
+            ("emission", "emission_strength"))
+        em_c = (em["emission"] * em["emission_strength"][..., None]
+                * w_em[..., None] * new_throughput)
+        em_c = _clamp_contribution(em_c, settings.indirect_contribution_clamp)
+        radiance = radiance + torch.where(
+            (valid_sample & hit & is_em)[..., None], em_c, 0.0)
+
+        # miss → ambient
+        env_c = eval_envmap(world, scene.envmap, wi) * new_throughput
+        env_c = _clamp_contribution(env_c, settings.envmap_contribution_clamp)
+        radiance = radiance + torch.where((valid_sample & ~hit)[..., None], env_c, 0.0)
+
+        # --- next vertex ---
+        p2 = o_next + wi * torch.where(torch.isfinite(t_b), t_b, 0.0)[..., None]
+        next_active = valid_sample & hit
+        na = next_active[..., None]
+        entering2 = (ns2 * wi).sum(dim=-1) < 0.0
+        rays = rays + n_shadow + valid_sample.sum()
+        throughput = torch.where(na, new_throughput, throughput)
+        p = torch.where(na, p2, p)
+        ns = torch.where(na, _face_forward(ns2, wi), ns)
+        ng = torch.where(na, _face_forward(ng2, wi), ng)
+        wo = torch.where(na, -wi, wo)
+        mat_id = torch.where(next_active, mat_id2, mat_id)
+        entering = torch.where(next_active, entering2, entering)
+        active = next_active
+
+    # NaN / negative scrub: a bad sample contributes black
+    bad = (~torch.isfinite(radiance) | (radiance < 0.0)).any(dim=-1)
+    radiance = torch.where(bad[..., None], 0.0, radiance)
+    return rng_state, radiance, aov_albedo, aov_normal, rays

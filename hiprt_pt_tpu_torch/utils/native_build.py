@@ -1,0 +1,45 @@
+"""Build-on-first-use of the port's native shared libraries.
+
+Every library is compiled from sources in the package into
+``hiprt_pt_tpu_torch/_build/`` (gitignored) and loaded with ctypes. A build
+writes to a private temporary file and renames it into place, so processes
+that build the same library at once never load a half-written file. A failed
+build raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import tempfile
+
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+
+
+def build_shared(compiler_cmd: list, sources: list, lib_name: str,
+                 timeout: float = 600.0) -> tuple[str, str]:
+    """Compile ``sources`` into ``_build/<lib_name>`` unless an up-to-date
+    copy is there. ``compiler_cmd`` is the command without the sources and
+    the ``-o`` output. Returns (library path, compiler output; empty when
+    the library was already built)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = os.path.join(BUILD_DIR, lib_name)
+    newest_src = max(os.path.getmtime(s) for s in sources)
+    if os.path.exists(lib) and os.path.getmtime(lib) >= newest_src:
+        return lib, ""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            list(compiler_cmd) + list(sources) + ["-o", tmp],
+            capture_output=True, text=True, timeout=timeout,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {lib_name} failed ({proc.returncode}):\n"
+                f"{' '.join(proc.args)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib, proc.stdout + proc.stderr

@@ -1,0 +1,99 @@
+"""The port's CUDA traversal kernels against their plain PyTorch version, on
+the card. Every test here needs an NVIDIA GPU (sm_90a) and nvcc, and skips
+when torch.cuda.is_available() is false. On a GPU host without JAX (the
+tests' conftest.py imports JAX, which this file does not need):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+chip_smoke.py checks the same at full scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def gpu_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
+
+    dev = torch.device("cuda:0")
+    scene, cam = load_stress_scene(aspect=2.0, tri_scale=0.01,
+                                   with_textures=False, device=dev)
+    bvh = build_bvh(scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy(), dev)
+    return scene, cam, bvh, dev
+
+
+def _rays(dev, n=16384, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-9.5, 0.4, -5.5], [9.5, 5.5, 5.5], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(rng.random(n) < 0.3, rng.uniform(0.2, 4.0, n), np.inf)
+    active = rng.random(n) >= 0.1
+    return (torch.from_numpy(o).to(dev), torch.from_numpy(d.astype(np.float32)).to(dev),
+            torch.from_numpy(t_max.astype(np.float32)).to(dev),
+            torch.from_numpy(active).to(dev))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["trace_coherent", "trace_incoherent"])
+def test_kernel_matches_plain(gpu_scene, kernel, any_hit):
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    _, _, bvh, dev = gpu_scene
+    o, d, t_max, active = _rays(dev)
+    before = ct.launch_counts[kernel]
+    rk = getattr(ct, kernel)(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert ct.launch_counts[kernel] == before + 1
+    rp = plain.traverse(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
+    act = active.cpu().numpy()
+    assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    if any_hit:
+        assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
+    else:
+        assert np.mean(pk == pp) >= 0.9999
+        m = (pk == pp) & (pk >= 0)
+        np.testing.assert_allclose(rk.t.cpu().numpy()[m], rp.t.cpu().numpy()[m],
+                                   rtol=1e-5)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(gpu_scene):
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    _, _, bvh, dev = gpu_scene
+    o, d, _, _ = _rays(dev, n=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.trace_incoherent(bvh, o, d.t().contiguous().t())
+    with pytest.raises(TypeError):
+        ct.trace_coherent(bvh, o.double(), d)
+
+
+def test_gpu_render_matches_cpu(gpu_scene):
+    from hiprt_pt_tpu_torch.core import settings as ts
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+
+    scene, cam, bvh, _ = gpu_scene
+    opts = ts.RenderOptions(direct_light_sampling=ts.LightSamplingStrategy.MIS,
+                            bsdf_override=ts.BSDFOverride.LAMBERTIAN,
+                            do_dispersion=False, max_bounces_static=4)
+    settings = ts.RenderSettings(nb_bounces=4)
+    world = ts.WorldSettings(ambient_light_type=int(ts.AmbientLightType.NONE))
+    cpu = torch.device("cpu")
+    imgs = []
+    for sc, c, b in ((scene, cam, bvh), (scene.to(cpu), cam.to(cpu), bvh.to(cpu))):
+        r = Renderer(sc, c, 64, 32, options=opts, settings=settings, world=world,
+                     bvh=b, seed=42)
+        r.step()
+        imgs.append(r.hdr_image())
+    got, ref = imgs
+    close = np.all(np.abs(got - ref) <= 1e-3 + 1e-3 * np.abs(ref), axis=-1)
+    assert close.mean() >= 0.98
