@@ -5,18 +5,29 @@
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
-  2. build    — compile the traversal kernels (nvcc) and the BVH builder (g++).
+  2. build    — compile the three traversal kernels (nvcc) and the BVH
+                builder (g++).
+  The stress path:
   3. scene    — the procedural stress interior at full scale (~259k
                 triangles, 120 emitters) and its BVH.
-  4. kernels  — each kernel against its plain PyTorch version on the card, in
-                closest- and any-hit form, with finite t_max and inactive rays,
-                1,024 rays also against brute force; then each kernel's and
-                the plain version's time on the 1920x1080 wavefront.
+  4. kernels  — trace_coherent and trace_incoherent against their plain
+                PyTorch version on the card, in closest- and any-hit form,
+                with finite t_max and inactive rays, 1,024 rays also against
+                brute force; then each kernel's and the plain version's time
+                on the 1920x1080 wavefront.
   5. slice    — the renderer at 1920x1080, 4 bounces, Lambertian override,
                 MIS NEE: one warm-up frame and 4 timed frames. Launch counts
                 are reset just before and read just after.
   6. parity   — one sample at 256x128 rendered on the GPU and on the CPU (plain
                 traversal), compared per pixel.
+  The Cornell path (every ray through trace_meganode):
+  7. scene    — the procedural Cornell box with seven principled spheres
+                (tests/torch_parity.py:cornell_spheres_arrays, 35,852
+                triangles) and its BVH, whose meganode table is kept.
+  8. kernels  — trace_meganode against its plain version, as in phase 4.
+  9. slice    — the renderer at 1920x1080, 4 bounces, the full principled
+                BSDF with dispersion and thin film, MIS NEE, as in phase 5.
+  10. parity  — as phase 6, on the Cornell path.
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. Imports nothing of JAX.
 """
@@ -24,6 +35,7 @@ run's JSON result. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -45,7 +57,15 @@ PIX_ATOL, PIX_RTOL, PIX_FRAC = 1e-3, 1e-3, 0.98
 KERNELS = {
     "trace_coherent": "hiprt_pt_tpu/ops/pallas_traverse.py:381",
     "trace_incoherent": "hiprt_pt_tpu/ops/pallas_traverse.py:1866",
+    "trace_meganode": "hiprt_pt_tpu/ops/pallas_traverse.py:55",
 }
+# the plain PyTorch version of each kernel (ops/traverse.py)
+PLAIN = {"trace_coherent": "traverse", "trace_incoherent": "traverse",
+         "trace_meganode": "traverse_meganode"}
+# the rays each kernel is held against and timed on: camera rays of the
+# 1920x1080 wavefront, or cosine bounce rays from their hits
+STRESS_CASES = (("trace_coherent", "camera"), ("trace_incoherent", "bounce"))
+CORNELL_CASES = (("trace_meganode", "camera"), ("trace_meganode", "bounce"))
 
 
 def log(*a):
@@ -176,7 +196,10 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def phase_kernels(scene, cam, bvh, dev):
+def phase_kernels(scene, cam, bvh, dev, cases):
+    """Each (kernel, ray kind) of ``cases`` against the kernel's plain
+    version and brute force, then both timed on the 1080p wavefront.
+    Returns ({kernel: max |dt|}, {(kernel, kind, any_hit): (ms, plain ms)})."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.ops import traverse as plain
     from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest
@@ -192,18 +215,18 @@ def phase_kernels(scene, cam, bvh, dev):
     act_np = rng.random(n) >= 0.1
     tmax = torch.from_numpy(tmax_np).to(dev)
     act = torch.from_numpy(act_np).to(dev)
-    act_i = act & hit_c
+    rays = {"camera": (o_c, d_c, act), "bounce": (o_i, d_i, act & hit_c)}
     errs = {}
-    for kname, o, d, a in (("trace_coherent", o_c, d_c, act),
-                           ("trace_incoherent", o_i, d_i, act_i)):
-        kern = getattr(ct, kname)
-        errs[kname] = 0.0
+    for kname, kind in cases:
+        kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
+        o, d, a = rays[kind]
+        errs.setdefault(kname, 0.0)
         for any_hit in (False, True):
             t_min = 1e-4 if any_hit else 0.0
             rk = kern(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
-            rp = plain.traverse(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
+            rp = walk(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
             torch.cuda.synchronize()
-            tag = f"{kname}[{'any' if any_hit else 'closest'}]"
+            tag = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
             errs[kname] = max(errs[kname], compare(tag, rk, rp, any_hit, a))
         # brute force on 1,024 active rays with an unbounded t_max
         sel = torch.nonzero(a & torch.isinf(tmax)).squeeze(1)[:BRUTE_RAYS]
@@ -211,51 +234,61 @@ def phase_kernels(scene, cam, bvh, dev):
         bt, bp, _bu, _bv = brute_force_closest(scene.vertices, scene.triangles,
                                                o[sel], d[sel], t_min=0.0)
         rb = plain.HitRecord(t=bt, prim=bp, u=_bu, v=_bv)
-        compare(f"{kname}[brute force]", rk, rb, False,
+        compare(f"{kname}[{kind}, brute force]", rk, rb, False,
                 torch.ones_like(sel, dtype=torch.bool))
 
     # the full 1080p wavefront: time, and compare once more at this shape
     o_f, d_f = camera_rays(cam, WIDTH, HEIGHT)
     o_b, d_b, hit_f = bounce_rays(scene, bvh, o_f, d_f, seed=3)
+    full = {"camera": (o_f, d_f, torch.ones_like(hit_f)),
+            "bounce": (o_b, d_b, hit_f)}
     times = {}
-    for kname, o, d, a in (("trace_coherent", o_f, d_f,
-                            torch.ones_like(hit_f)),
-                           ("trace_incoherent", o_b, d_b, hit_f)):
-        kern = getattr(ct, kname)
+    for kname, kind in cases:
+        kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
+        o, d, a = full[kind]
         for any_hit in (False, True):
             t_min = 1e-4 if any_hit else 0.0
             k_ms, rk = cuda_ms(lambda: kern(bvh, o, d, t_min, float("inf"), a,
                                             any_hit=any_hit), reps=5)
-            p_ms, rp = cuda_ms(lambda: plain.traverse(bvh, o, d, t_min,
-                                                      float("inf"), a,
-                                                      any_hit=any_hit), reps=1)
-            tag = f"{kname}[{'any' if any_hit else 'closest'}, 1080p]"
+            p_ms, rp = cuda_ms(lambda: walk(bvh, o, d, t_min, float("inf"), a,
+                                            any_hit=any_hit), reps=1)
+            tag = f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p]"
             errs[kname] = max(errs[kname], compare(tag, rk, rp, any_hit, a))
-            times[(kname, any_hit)] = (k_ms, p_ms)
+            times[(kname, kind, any_hit)] = (k_ms, p_ms)
             log(f"[kernels] {kname} {'any-hit' if any_hit else 'closest'} on "
-                f"{o.shape[0]} rays: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
+                f"{o.shape[0]} {kind} rays: kernel {k_ms:.3f} ms, plain "
+                f"{p_ms:.3f} ms ({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
     return errs, times
 
 
-def slice_options():
+def slice_options(cornell: bool):
+    """The stress path: Lambertian override, no dispersion. The Cornell
+    path: the defaults, i.e. the full principled BSDF with dispersion and
+    thin film. Both with MIS NEE, 4 bounces and ambient NONE."""
     from hiprt_pt_tpu_torch.core.settings import (
         AmbientLightType, BSDFOverride, LightSamplingStrategy, RenderOptions,
         RenderSettings, WorldSettings)
 
     opts = RenderOptions(direct_light_sampling=LightSamplingStrategy.MIS,
-                         bsdf_override=BSDFOverride.LAMBERTIAN,
-                         do_dispersion=False, max_bounces_static=4)
+                         max_bounces_static=4)
+    if cornell:
+        assert opts.bsdf_override == BSDFOverride.NONE
+        assert opts.do_dispersion and opts.do_thin_film
+    else:
+        opts = opts.replace(bsdf_override=BSDFOverride.LAMBERTIAN,
+                            do_dispersion=False)
     settings = RenderSettings(nb_bounces=4, samples_per_frame=1)
     world = WorldSettings(ambient_light_type=int(AmbientLightType.NONE))
     return opts, settings, world
 
 
-def phase_slice(scene, cam, bvh):
+def phase_slice(tag, scene, cam, bvh, cornell, kernels):
+    """One warm-up frame and 4 timed frames at 1920x1080. Every kernel of
+    ``kernels`` must be launched in them, and no other."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
-    opts, settings, world = slice_options()
+    opts, settings, world = slice_options(cornell)
     r = Renderer(scene, cam, WIDTH, HEIGHT, options=opts, settings=settings,
                  world=world, bvh=bvh, seed=42)
     ct.reset_launch_counts()
@@ -277,25 +310,27 @@ def phase_slice(scene, cam, bvh):
     rays = r.rays_traced - rays0
     img = r.hdr_image()
     nonblack = float(np.mean(img.sum(-1) > 0.0))
-    log(f"[slice] {WIDTH}x{HEIGHT}, 4 bounces, {frames} timed frames: "
-        f"{ms:.1f} ms ({wall * 1e3:.1f} ms host clock), {rays} rays, "
-        f"{rays / ms / 1e3:.3f} Mrays/s, {frames / ms * 1e3:.3f} spp/s; "
-        f"launches {launches}; image mean {float(img.mean()):.6f}, "
-        f"non-black {nonblack:.4f}")
+    log(f"[{tag} slice] {WIDTH}x{HEIGHT}, 4 bounces, {frames} timed frames: "
+        f"{ms:.1f} ms ({ms / frames:.2f} ms/frame; {wall * 1e3:.1f} ms host "
+        f"clock), {rays} rays, {rays / ms / 1e3:.3f} Mrays/s, "
+        f"{frames / ms * 1e3:.3f} spp/s; launches {launches}; image mean "
+        f"{float(img.mean()):.6f}, non-black {nonblack:.4f}")
     for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched by the render path")
+        if (v > 0) != (k in kernels):
+            raise AssertionError(
+                f"{k} was launched {v} times by the {tag} path, which should "
+                f"launch exactly {sorted(kernels)}")
     if not np.isfinite(img).all():
-        raise AssertionError("slice image is not finite")
+        raise AssertionError(f"{tag} slice image is not finite")
     if nonblack <= 0.5:
-        raise AssertionError(f"slice image is only {nonblack:.3f} non-black")
+        raise AssertionError(f"{tag} slice image is only {nonblack:.3f} non-black")
     return launches
 
 
-def phase_parity(scene, cam, bvh):
+def phase_parity(tag, scene, cam, bvh, cornell):
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
-    opts, settings, world = slice_options()
+    opts, settings, world = slice_options(cornell)
     w, h = 256, 128
     cpu = torch.device("cpu")
     scene_cpu = scene.to(cpu)
@@ -312,11 +347,42 @@ def phase_parity(scene, cam, bvh):
     frac = float(close.mean())
     mean_rel = abs(float(gpu.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-12)
     rays_rel = abs(rays[0] - rays[1]) / max(rays[1], 1)
-    log(f"[parity] {w}x{h} GPU vs CPU: {frac:.5f} of pixels close, image mean "
-        f"rel diff {mean_rel:.2e}, rays {rays[0]} vs {rays[1]} "
+    log(f"[{tag} parity] {w}x{h} GPU vs CPU: {frac:.5f} of pixels close, "
+        f"image mean rel diff {mean_rel:.2e}, rays {rays[0]} vs {rays[1]} "
         f"({time.perf_counter() - t0:.1f} s)")
     if frac < PIX_FRAC or mean_rel > 0.01 or rays_rel > 0.005:
-        raise AssertionError("GPU render disagrees with the CPU render")
+        raise AssertionError(f"{tag}: GPU render disagrees with the CPU render")
+
+
+def phase_cornell_scene(dev):
+    """The procedural Cornell scene of the tests, at the 16:9 aspect."""
+    from hiprt_pt_tpu_torch.accel.build import MAX_MEGANODE_ROWS, build_bvh
+    from hiprt_pt_tpu_torch.assets.scene import build_scene
+    from hiprt_pt_tpu_torch.core.camera import camera_from_lookat
+    from hiprt_pt_tpu_torch.core.material import MaterialBank
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    from torch_parity import cornell_spheres_arrays
+
+    t0 = time.perf_counter()
+    v, f, m, rows, cam_kw = cornell_spheres_arrays(WIDTH / HEIGHT)
+    scene = build_scene(v, f, m, MaterialBank.from_rows(rows), device=dev)
+    cam = camera_from_lookat(**cam_kw, device=dev)
+    t1 = time.perf_counter()
+    bvh = build_bvh(v, f, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows_n = 0 if bvh.nodes is None else bvh.nodes.shape[0]
+    log(f"[cornell scene] {scene.num_triangles} triangles, "
+        f"{scene.num_emissives} emissive triangles, {len(rows)} materials, "
+        f"scene {t1 - t0:.2f} s, BVH build {t2 - t1:.3f} s, meganode rows "
+        f"{rows_n} (cap {MAX_MEGANODE_ROWS}), depth2 {bvh.depth2}, "
+        f"tables {bvh.nbytes} bytes")
+    if bvh.nodes is None or not 0 < rows_n <= MAX_MEGANODE_ROWS:
+        raise AssertionError("the Cornell scene's meganode table is not kept")
+    assert scene.num_triangles == 35_852
+    return scene, cam, bvh
 
 
 def main() -> int:
@@ -326,9 +392,23 @@ def main() -> int:
     dev = torch.device("cuda:0")
     phase_build()
     scene, cam, bvh, _build_s = phase_scene(dev)
-    errs, times = phase_kernels(scene, cam, bvh, dev)
-    launches = phase_slice(scene, cam, bvh)
-    phase_parity(scene, cam, bvh)
+    errs, times = phase_kernels(scene, cam, bvh, dev, STRESS_CASES)
+    launches = phase_slice("stress", scene, cam, bvh, False,
+                           {k for k, _ in STRESS_CASES})
+    phase_parity("stress", scene, cam, bvh, False)
+    del scene, cam, bvh
+
+    scene, cam, bvh = phase_cornell_scene(dev)
+    c_errs, c_times = phase_kernels(scene, cam, bvh, dev, CORNELL_CASES)
+    c_launches = phase_slice("cornell", scene, cam, bvh, True,
+                             {k for k, _ in CORNELL_CASES})
+    phase_parity("cornell", scene, cam, bvh, True)
+    errs.update(c_errs)
+    times.update(c_times)
+    launches.update({k: c_launches[k] for k, _ in CORNELL_CASES})
+
+    # ms and plain ms: closest hit on the 1080p rays each kernel serves
+    timed = dict(STRESS_CASES + CORNELL_CASES[:1])
     kernels = [{
         "name": k,
         "route": "cuda",
@@ -336,8 +416,8 @@ def main() -> int:
         "replaces": KERNELS[k],
         "launches": launches[k],
         "max_abs_err": errs[k],
-        "ms": times[(k, False)][0],
-        "plain_ms": times[(k, False)][1],
+        "ms": times[(k, timed[k], False)][0],
+        "plain_ms": times[(k, timed[k], False)][1],
     } for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,19 +12,33 @@ JAX package's layouts and numbers:
       padded), [108:120] prim ids (int32 bits, -1 padded), [120] leaf flag
       1.0, [121] triangle count. Row 0 is an all-zero dummy.
   tri_rows (T, 12) f32 — per triangle [v0, e1, e2, 0, 0, 0].
+  nodes (M, 128) f32 — the meganode BVH2 of the native binned-SAH builder
+      (leaves of up to 4 triangles embedded in their parent's row):
+      [0:12] two child boxes, [12:16] c0_ref, c0_count, c1_ref, c1_count
+      (int32 bits; count 0 = internal child, ref its row; count > 0 = a leaf
+      of that many triangles in this row; count < 0 = empty slot, with a
+      zero box), [16:52] and [52:88] up to 4 triangles [v0, e1, e2] per
+      child (NaN padded), [88:96] their prim ids (-1 padded). Row 0 is the
+      root. Kept only up to MAX_MEGANODE_ROWS rows (small scenes, whose
+      every ray goes through trace_meganode); None above.
 
-The meganode, BVH8 and lane8 tables of the JAX package exist for its TPU
-kernels and are not built here.
+The BVH8 and lane8 tables of the JAX package exist for its TPU kernels and
+are not built here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 LEAF_TRIS_COMPACT = 12  # fat-leaf capacity of a leaf row
+MEGANODE_LEAF_TRIS = 4  # triangles of a leaf embedded in a meganode row
+# the largest meganode table that is kept (8 MB of 512-byte rows); the JAX
+# package's K3 holds it in VMEM up to the same count (MAX_VMEM_NODES)
+MAX_MEGANODE_ROWS = 16384
 
 
 @dataclasses.dataclass
@@ -34,17 +48,35 @@ class BVHData:
     tri_rows: torch.Tensor   # (T, 12) f32
     # max internal-node depth of nodes4 (root = 1); bounds traversal stacks
     depth4: int
+    nodes: Optional[torch.Tensor] = None  # (M, 128) f32, M <= MAX_MEGANODE_ROWS
+    # max row depth of the meganode tree (root = 1); bounds its stacks
+    depth2: int = 0
 
     def to(self, device) -> "BVHData":
         return dataclasses.replace(
             self, nodes4=self.nodes4.to(device),
             leaf_rows=self.leaf_rows.to(device),
-            tri_rows=self.tri_rows.to(device))
+            tri_rows=self.tri_rows.to(device),
+            nodes=None if self.nodes is None else self.nodes.to(device))
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.nodes4, self.leaf_rows, self.tri_rows))
+        tables = (self.nodes4, self.leaf_rows, self.tri_rows, self.nodes)
+        return sum(t.numel() * t.element_size() for t in tables if t is not None)
+
+
+def meganode_depth(rows: np.ndarray) -> int:
+    """Max row depth (root = 1) of a meganode table: a child slot with
+    count 0 is an internal child whose ref is its row."""
+    meta = np.ascontiguousarray(rows[:, 12:16]).view(np.int32)
+    frontier = np.zeros((1,), np.int64)
+    depth = 0
+    while frontier.size:
+        depth += 1
+        m = meta[frontier]
+        frontier = np.concatenate([m[m[:, 1] == 0, 0], m[m[:, 3] == 0, 2]]
+                                  ).astype(np.int64)
+    return depth
 
 
 def _compact_from_raw(bounds, meta, order, vertices, triangles):
@@ -153,8 +185,10 @@ def _collapse4(n16: np.ndarray):
 
 def build_bvh(vertices: np.ndarray, triangles: np.ndarray,
               device="cpu") -> BVHData:
-    """SBVH build on the host, tables moved to ``device``."""
-    from .native import build_bvh_raw_native
+    """SBVH build on the host, tables moved to ``device``; the meganode
+    table is built too and moved only when it has at most
+    MAX_MEGANODE_ROWS rows."""
+    from .native import build_bvh_native, build_bvh_raw_native
 
     vertices = np.asarray(vertices, dtype=np.float32)
     triangles = np.asarray(triangles, dtype=np.int64)
@@ -179,8 +213,12 @@ def build_bvh(vertices: np.ndarray, triangles: np.ndarray,
     else:
         nodes4, depth4 = _collapse4(n16)
 
+    rows = build_bvh_native(vertices, triangles, MEGANODE_LEAF_TRIS)
+
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+    small = rows.shape[0] <= MAX_MEGANODE_ROWS
     return BVHData(nodes4=t(nodes4), leaf_rows=t(lrows), tri_rows=t(tri_rows),
-                   depth4=int(depth4))
+                   depth4=int(depth4), nodes=t(rows) if small else None,
+                   depth2=meganode_depth(rows))

@@ -1,6 +1,7 @@
 """Native (C++) BVH builder — a verbatim copy of the JAX package's
 ``accel/native/bvh_builder.cpp``, built with g++ at first use into the
-port's build directory and bound with ctypes."""
+port's build directory and bound with ctypes: the SBVH of the BVH4 tables
+and the binned-SAH BVH2 of the meganode table."""
 
 from __future__ import annotations
 
@@ -34,8 +35,35 @@ def get_lib():
                 fp, ctypes.c_int64, ip, ctypes.c_int64, ctypes.c_int,
                 fp, ip, ctypes.c_int64, lp, ctypes.c_int64, lp,
             ]
+            lib.hpt_build_bvh.restype = ctypes.c_int64
+            lib.hpt_build_bvh.argtypes = [
+                fp, ctypes.c_int64, ip, ctypes.c_int64, ctypes.c_int,
+                fp, ctypes.c_int64,
+            ]
             _lib = lib
         return _lib
+
+
+def build_bvh_native(vertices: np.ndarray, triangles: np.ndarray,
+                     max_leaf: int = 4) -> np.ndarray:
+    """Binned-SAH BVH2 packed into (M, 128) f32 meganode rows, leaves of up
+    to ``max_leaf`` (≤ 4) triangles embedded in their parent's row (layout:
+    accel/build.py)."""
+    lib = get_lib()
+    verts = np.ascontiguousarray(vertices, dtype=np.float32)
+    tris = np.ascontiguousarray(triangles, dtype=np.int32)
+    n_tris = tris.shape[0]
+    cap = max(n_tris, 1)
+    rows = np.zeros((cap, 128), np.float32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    n = lib.hpt_build_bvh(
+        verts.ctypes.data_as(fp), verts.shape[0],
+        tris.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n_tris, max_leaf,
+        rows.ctypes.data_as(fp), cap,
+    )
+    if n <= 0:
+        raise RuntimeError(f"native meganode build failed (returned {n})")
+    return rows[:n]
 
 
 def build_bvh_raw_native(vertices: np.ndarray, triangles: np.ndarray,

@@ -180,3 +180,24 @@ def oren_nayar_AB(sigma: torch.Tensor):
     A = 1.0 - 0.5 * s2 / (s2 + 0.33)
     B = 0.45 * s2 / (s2 + 0.09)
     return A, B
+
+
+def get_alphas(roughness: torch.Tensor, anisotropy: torch.Tensor):
+    """GGX alpha_x, alpha_y from roughness and anisotropy (reference
+    Material.h:80-85)."""
+    aspect = torch.sqrt(1.0 - 0.9 * anisotropy)
+    r2 = roughness * roughness
+    alpha_x = torch.clamp_min(r2 / aspect, ROUGHNESS_CLAMP)
+    alpha_y = torch.clamp_min(r2 * aspect, ROUGHNESS_CLAMP)
+    return alpha_x, alpha_y
+
+
+def thin_walled_roughness(thin_walled: torch.Tensor, base_roughness: torch.Tensor,
+                          relative_eta: torch.Tensor) -> torch.Tensor:
+    """Roughness remap so a thin-walled single interface matches a
+    double-interface slab (reference Material.h:87-111)."""
+    eta = torch.where((relative_eta - 1.0).abs() < 1.0e-3, 1.001, relative_eta)
+    remapped = base_roughness * torch.sqrt(torch.clamp_min(
+        3.7 * (eta - 1.0) * torch.square(eta - 0.5) / (eta ** 3), 0.0))
+    r = torch.where(thin_walled > 0.5, remapped, base_roughness)
+    return torch.clamp(r, ROUGHNESS_CLAMP, 1.0)

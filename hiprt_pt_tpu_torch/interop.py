@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .accel.build import BVHData
+from .accel.build import MAX_MEGANODE_ROWS, BVHData, meganode_depth
 from .assets.scene import SceneData
 from .core.material import FIELD_NAMES, MaterialBank
 from .core.state import GBuffer, RenderState
@@ -58,15 +58,27 @@ def bvh4_depth(nodes4: np.ndarray) -> int:
 
 
 def bvh_from_numpy(d: dict, device="cpu") -> BVHData:
-    """BVHData from the JAX package's ``nodes4``, ``leaf_rows`` and
-    ``tri_rows``; the BVH4 depth is measured here when not given."""
+    """BVHData from the JAX package's ``nodes4``, ``leaf_rows``,
+    ``tri_rows`` and, optionally, its meganode table ``nodes``. The BVH4 and
+    meganode depths are measured here when not given; a meganode table of
+    more than MAX_MEGANODE_ROWS rows is dropped, as ``build_bvh`` drops it."""
     nodes4 = np.asarray(d["nodes4"], np.float32)
     depth4 = d.get("depth4")
+    nodes = d.get("nodes")
+    if nodes is not None:
+        nodes = np.asarray(nodes, np.float32)
+    depth2 = d.get("depth2")
+    if depth2 is None:
+        depth2 = meganode_depth(nodes) if nodes is not None else 0
+    if nodes is not None and nodes.shape[0] > MAX_MEGANODE_ROWS:
+        nodes = None
     return BVHData(
         nodes4=_t(nodes4, device),
         leaf_rows=_t(np.asarray(d["leaf_rows"], np.float32), device),
         tri_rows=_t(np.asarray(d["tri_rows"], np.float32), device),
         depth4=int(depth4) if depth4 is not None else bvh4_depth(nodes4),
+        nodes=None if nodes is None else _t(nodes, device),
+        depth2=int(depth2),
     )
 
 

@@ -15,13 +15,7 @@ import torch
 
 from ..core import rng as rng_mod
 from ..core.settings import BSDFOverride, RenderOptions
-from . import lambert, oren_nayar
-
-
-def _principled_missing():
-    return NotImplementedError(
-        "the principled BSDF is not ported yet (ROADMAP: models/ principled "
-        "stack with LUTs); use bsdf_override=LAMBERTIAN or OREN_NAYAR")
+from . import lambert, oren_nayar, principled
 
 
 def _no_refract(n_rays, device):
@@ -35,7 +29,7 @@ def bsdf_eval(options: RenderOptions, mats, n, wo, wi, aux=None):
     if ov == BSDFOverride.OREN_NAYAR:
         return oren_nayar.eval_pdf(
             mats.base_color, mats.oren_nayar_sigma, n, wo, wi)
-    raise _principled_missing()
+    return principled.eval_pdf(options, mats, n, wo, wi, aux)
 
 
 def bsdf_sample(options: RenderOptions, mats, n, wo, rng_state, aux=None):
@@ -49,4 +43,4 @@ def bsdf_sample(options: RenderOptions, mats, n, wo, rng_state, aux=None):
         wi, f, pdf = oren_nayar.sample(
             mats.base_color, mats.oren_nayar_sigma, n, wo, u1, u2)
         return rng_state, wi, f, pdf, _no_refract(n.shape[0], n.device)
-    raise _principled_missing()
+    return principled.sample(options, mats, n, wo, rng_state, aux)

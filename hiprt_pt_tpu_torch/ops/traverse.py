@@ -1,5 +1,5 @@
-"""BVH traversal — the ``HitRecord`` contract and the plain PyTorch version of
-the port's two traversal kernels (ops/cuda_traverse.py).
+"""BVH traversal — the ``HitRecord`` contract and the plain PyTorch versions
+of the port's traversal kernels (ops/cuda_traverse.py).
 
 The contract is the JAX package's (``hiprt_pt_tpu.ops.traverse``): rays
 ``o, d`` (N, 3), ``t_min``/``t_max`` scalar or (N,), ``active`` (N,) bool;
@@ -17,6 +17,11 @@ does not pick the winner; a walk that culls the second triangle's box at
 exactly that t still keeps the first (rare: one ray in two million 1080p
 camera rays on the stress interior). It runs on any device; the render
 path sends only CPU tensors to it.
+
+``traverse_meganode`` is the same per-ray walk over the meganode table
+``nodes`` (the plain version of ``trace_meganode``): two children per row,
+leaves of up to 4 triangles embedded in the row, the near child popped
+first, the same tie rule.
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ import dataclasses
 
 import torch
 
+from ..accel.build import MEGANODE_LEAF_TRIS
 from .intersect import triangle_test
 
 STACK_SIZE = 64
 LEAF_TRIS = 12
+MEGANODE_STACK = 64        # far-sibling entries of a meganode walk
 
 
 @dataclasses.dataclass
@@ -65,8 +72,12 @@ def per_ray(x, n: int, device) -> torch.Tensor:
 
 
 def inverse_direction(d: torch.Tensor) -> torch.Tensor:
-    """1/d with the JAX package's guard for near-zero components."""
-    return torch.where(d.abs() > 1e-12, 1.0 / d, torch.sign(d) * 1e12 + 1e12)
+    """1/d, with ±1e12 for a component within 1e-12 of zero: -1e12 for a
+    negative one, +1e12 for +0 and -0. (The JAX package's guard,
+    ``sign(c)·1e12 + 1e12``, gives 0 for a tiny negative component, which
+    collapses that axis's slab and misses every box not around the origin.)"""
+    big = torch.where(d < 0.0, -1e12, 1e12)
+    return torch.where(d.abs() > 1e-12, 1.0 / d, big)
 
 
 def slab_test(boxes, o, inv, best_t):
@@ -156,6 +167,110 @@ def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
             rec.v[hl] = v[found].gather(1, kf)[:, 0]
             if any_hit:
                 sp[hl] = 0
+        alive = torch.nonzero(sp > 0).squeeze(1)
+
+    miss = rec.prim < 0
+    rec.t = torch.where(miss, torch.full_like(best_t, float("inf")), best_t)
+    if any_hit:
+        rec.u.zero_()
+        rec.v.zero_()
+    return rec
+
+
+def check_meganode_depth(bvh) -> None:
+    """A meganode walk holds at most one far sibling per row on its path
+    plus the near child just pushed: depth2 entries must fit the stack."""
+    if bvh.nodes is None:
+        raise ValueError("this BVH has no meganode table (nodes is None)")
+    if int(bvh.depth2) > MEGANODE_STACK:
+        raise ValueError(
+            f"meganode tree depth {bvh.depth2} needs a {bvh.depth2}-entry "
+            f"stack; the meganode walk holds {MEGANODE_STACK}")
+
+
+def traverse_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
+                      any_hit: bool = False) -> HitRecord:
+    """Closest-hit (or any-hit) walk over the meganode table ``bvh.nodes``,
+    plain PyTorch: the plain version of ``trace_meganode``. Every iteration
+    pops one row per live ray, slab-tests its two child boxes, intersects
+    the embedded leaf triangles of the children it hits and pushes the
+    internal children it hits, far first. An empty slot (count < 0) is
+    neither descended nor intersected."""
+    check_meganode_depth(bvh)
+    n = o.shape[0]
+    dev = o.device
+    rec = empty_hit_record(n, dev)
+    if n == 0:
+        return rec
+    inv = inverse_direction(d)
+    t_min = per_ray(t_min, n, dev)
+    best_t = per_ray(t_max, n, dev).clone()
+    act = (torch.ones((n,), dtype=torch.bool, device=dev) if active is None
+           else active.to(torch.bool))
+
+    nodes = bvh.nodes
+    boxes = nodes[:, :12].reshape(-1, 2, 6)
+    meta = nodes[:, 12:16].contiguous().view(torch.int32)
+    tris = nodes[:, 16:88].reshape(-1, 2 * MEGANODE_LEAF_TRIS, 9)
+    tri_prims = nodes[:, 88:96].contiguous().view(torch.int32)
+    slot = torch.arange(MEGANODE_LEAF_TRIS, device=dev)
+
+    stack = torch.zeros((n, MEGANODE_STACK), dtype=torch.int32, device=dev)
+    sp = act.to(torch.int64)  # every live stack starts as [root]
+    alive = torch.nonzero(sp > 0).squeeze(1)
+    while alive.numel():
+        sp[alive] -= 1
+        row = stack[alive, sp[alive]].long()
+        m = meta[row]
+        ref, cnt = m[:, 0::2], m[:, 1::2]  # (k, 2) per child slot
+        hit, t_entry = slab_test(boxes[row], o[alive], inv[alive], best_t[alive])
+        hit = hit & (cnt >= 0)
+
+        # leaf children: the embedded triangles of each child the ray hits
+        tri_ok = (hit & (cnt > 0))[:, :, None] & (slot < cnt[:, :, None])
+        tri_ok = tri_ok.reshape(-1, 2 * MEGANODE_LEAF_TRIS)
+        leafy = tri_ok.any(dim=1)
+        found = torch.zeros_like(leafy)
+        if leafy.any():
+            li = alive[leafy]
+            r = row[leafy]
+            tri = tris[r]
+            ol, dl = o[li], d[li]
+            ok, t, u, v = triangle_test(
+                ol[:, 0:1], ol[:, 1:2], ol[:, 2:3],
+                dl[:, 0:1], dl[:, 1:2], dl[:, 2:3],
+                *(tri[..., c] for c in range(9)))
+            prims = tri_prims[r]
+            bt = best_t[li][:, None]
+            bp = rec.prim[li][:, None]
+            # the tie rule of traverse(): an equal t goes to the smaller prim
+            hit_t = (ok & tri_ok[leafy] & (t > t_min[li, None])
+                     & ((t < bt) | ((t == bt) & (bp >= 0) & (prims < bp))))
+            tk = torch.where(hit_t, t, torch.full_like(t, float("inf")))
+            first = hit_t & (tk == tk.amin(dim=1, keepdim=True))
+            k = torch.where(first, prims, torch.iinfo(torch.int32).max
+                            ).argmin(dim=1, keepdim=True)
+            f = hit_t.any(dim=1)
+            found[leafy] = f
+            hl = li[f]
+            kf = k[f]
+            best_t[hl] = tk[f].gather(1, kf)[:, 0]
+            rec.prim[hl] = prims[f].gather(1, kf)[:, 0]
+            rec.u[hl] = u[f].gather(1, kf)[:, 0]
+            rec.v[hl] = v[f].gather(1, kf)[:, 0]
+            if any_hit:
+                sp[hl] = 0
+
+        # internal children: push the far one first so the near one pops next
+        take = hit & (cnt == 0)
+        if any_hit:
+            take = take & ~found[:, None]
+        far = (t_entry[:, 0] <= t_entry[:, 1]).long()  # near child 0 on a tie
+        for child in (far, 1 - far):
+            mt = take.gather(1, child[:, None])[:, 0]
+            rows = alive[mt]
+            stack[rows, sp[rows]] = ref[mt].gather(1, child[mt][:, None])[:, 0]
+            sp[rows] += 1
         alive = torch.nonzero(sp > 0).squeeze(1)
 
     miss = rec.prim < 0

@@ -8,11 +8,15 @@
   miss → ambient, NaN guard.
 
 The whole image is one wavefront of N rays in the tile-major pixel order.
-Traversal routes by ray coherence: camera rays and the first bounce's shadow
-rays go through the packet kernel ``trace_coherent``, every other ray through
-``trace_incoherent``; on CPU tensors both run the plain PyTorch walk. The RNG
-draws happen in the JAX package's order: the camera pass draws jx, jy; each
-bounce draws u_alpha, then the NEE draws, then the BSDF sample's pair, then
+Traversal routes in the JAX package's order (``_make_tracers``), in one
+function, ``_tracer``: a scene whose meganode table is kept (at most
+MAX_MEGANODE_ROWS rows) sends every ray to ``trace_meganode``; otherwise
+camera rays and the first bounce's shadow rays go through the packet kernel
+``trace_coherent`` and every other ray through ``trace_incoherent``. On CPU
+tensors each runs its plain PyTorch walk. The RNG draws happen in the JAX
+package's order: the camera pass draws jx, jy; each bounce draws u_lam (with
+``do_dispersion``), u_alpha, then the NEE draws, then the BSDF sample's draws
+(the override's pair, or the principled BSDF's u_sel, u1, u2, u3), then
 u_rr. The host syncs once per bounce, to skip bounces with no live ray.
 """
 
@@ -20,10 +24,10 @@ from __future__ import annotations
 
 import torch
 
+from ..accel.build import MAX_MEGANODE_ROWS
 from ..core import rng as rng_mod
 from ..core.camera import generate_camera_rays
 from ..core.settings import (
-    BSDFOverride,
     InteriorStackStrategy,
     LightSamplingStrategy,
     RenderOptions,
@@ -39,7 +43,9 @@ from ..lights.light_sampling import (
 )
 from ..models import nested_dielectrics as nd
 from ..models.dispatcher import bsdf_eval, bsdf_sample
-from ..ops.cuda_traverse import trace_coherent, trace_incoherent
+from ..models.dispersion import (ior_at_wavelength, sample_wavelength,
+                                 wavelength_rgb_weight)
+from ..ops.cuda_traverse import trace_coherent, trace_incoherent, trace_meganode
 from ..ops.intersect import offset_ray_origin
 from ..ops.pixel_order import pixel_coords
 from ..ops.sampling import balance_heuristic
@@ -49,20 +55,11 @@ from ..ops.tonemap import luminance
 def check_supported(options: RenderOptions, scene) -> None:
     """Raise for the options and scene features the port does not carry yet
     (each names its ROADMAP item)."""
-    if options.bsdf_override not in (BSDFOverride.LAMBERTIAN,
-                                     BSDFOverride.OREN_NAYAR):
-        raise NotImplementedError(
-            "the principled BSDF is not ported yet (ROADMAP: models/ "
-            "principled stack with LUTs); use bsdf_override=LAMBERTIAN")
     if options.direct_light_sampling in (LightSamplingStrategy.RIS_BSDF_LIGHT,
                                          LightSamplingStrategy.RESTIR_DI):
         raise NotImplementedError(
             "RIS and ReSTIR DI are not ported yet (ROADMAP: lights/ris.py, "
             "restir/); use direct_light_sampling=MIS")
-    if options.do_dispersion:
-        raise NotImplementedError(
-            "dispersion is not ported yet (ROADMAP: models/dispersion.py); "
-            "use do_dispersion=False")
     if scene.textures is not None or scene.envmap is not None:
         raise NotImplementedError(
             "textures and envmaps are not ported yet (ROADMAP: ops/texture.py, "
@@ -70,11 +67,21 @@ def check_supported(options: RenderOptions, scene) -> None:
     if options.interior_stack_strategy != InteriorStackStrategy.WITH_PRIORITIES:
         raise NotImplementedError(
             "only the WITH_PRIORITIES interior stack is ported (ROADMAP: "
-            "models/ principled stack)")
+            "integrator options, AUTOMATIC interior stack)")
     if options.white_furnace_mode:
         raise NotImplementedError(
-            "white-furnace mode is not ported yet (ROADMAP: models/ "
-            "principled stack, white-furnace checks)")
+            "white-furnace mode is not ported yet (ROADMAP: integrator "
+            "options, white-furnace mode)")
+
+
+def _tracer(bvh, coherent: bool):
+    """The traversal kernel for a batch of rays. As the JAX package's
+    ``_make_tracers`` does, a kept meganode table takes every ray (K3 port);
+    otherwise ``coherent`` rays (screen-tile packets) take the packet
+    kernel and the rest the per-ray kernel."""
+    if bvh.nodes is not None and bvh.nodes.shape[0] <= MAX_MEGANODE_ROWS:
+        return trace_meganode
+    return trace_coherent if coherent else trace_incoherent
 
 
 def _nee_enabled(options: RenderOptions) -> bool:
@@ -136,7 +143,7 @@ def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
     if settings.enable_adaptive_sampling:
         active = active & ~state.pixel_converged
 
-    rec = trace_coherent(bvh, o, d, t_min=0.0, active=active)
+    rec = _tracer(bvh, coherent=True)(bvh, o, d, t_min=0.0, active=active)
     hit = rec.prim >= 0
     ns, ng, uv, mat_id = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
     pos = o + d * torch.where(torch.isfinite(rec.t), rec.t, 0.0)[..., None]
@@ -169,7 +176,7 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
         return rng_state, contrib, n_shadow
     n_ls = max(int(settings.number_of_light_samples), 1)
     inv_ls = 1.0 / n_ls
-    occluded = trace_coherent if shadow_coherent else trace_incoherent
+    occluded = _tracer(bvh, coherent=shadow_coherent)
     for _ in range(n_ls):
         rng_state, ls = sample_emissive_triangle(scene, p, rng_state)
         wi = ls["wi"]
@@ -230,6 +237,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     stack_mat, stack_pri = nd.empty_stack(
         n_rays, options.nested_dielectrics_stack_size, dev)
     entering = ~gbuffer.backface
+    wavelength = torch.zeros((n_rays,), dtype=torch.float32, device=dev)  # 0: none
 
     n_bounces = min(options.max_bounces_static, int(settings.nb_bounces))
     for bounce in range(n_bounces):
@@ -238,7 +246,27 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         if not bool(active.any()):
             break
         mats = mats_all.at_indices(mat_id).make_safe()
-        eta_mat = mats.ior
+
+        # --- dispersion: a hero wavelength is drawn on first contact with a
+        # dispersive dielectric; its RGB weight enters the throughput once
+        # and its IOR replaces the material's from then on ---
+        if options.do_dispersion:
+            dispersive = ((mats.dispersion_scale > 0.0)
+                          & (mats.specular_transmission > 0.0))
+            rng_state, u_lam = rng_mod.next_float(rng_state)
+            need_sample = dispersive & (wavelength <= 0.0) & active
+            wavelength = torch.where(need_sample, sample_wavelength(u_lam),
+                                     wavelength)
+            throughput = torch.where(
+                need_sample[..., None],
+                throughput * wavelength_rgb_weight(wavelength), throughput)
+            eta_mat = torch.where(
+                dispersive & (wavelength > 0.0),
+                ior_at_wavelength(mats.ior, mats.dispersion_abbe_number,
+                                  mats.dispersion_scale, wavelength),
+                mats.ior)
+        else:
+            eta_mat = mats.ior
 
         rng_state, u_alpha = rng_mod.next_float(rng_state)
         alpha_skip = active & (u_alpha >= mats.alpha_opacity)
@@ -323,7 +351,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
 
         # --- trace the bounce ray ---
         o_next = offset_ray_origin(p, ng, wi)
-        rec = trace_incoherent(bvh, o_next, wi, t_min=0.0, active=valid_sample)
+        rec = _tracer(bvh, coherent=False)(bvh, o_next, wi, t_min=0.0,
+                                           active=valid_sample)
         hit = rec.prim >= 0
         ns2, ng2, _uv2, mat_id2 = _interpolate_hit(scene, rec.prim, rec.u,
                                                    rec.v, wi)

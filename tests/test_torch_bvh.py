@@ -171,7 +171,8 @@ def test_wrappers_run_the_plain_version_on_cpu(scenes):
         assert np.array_equal(rec.prim.numpy(), ref.prim.numpy())
         assert np.array_equal(rec.t.numpy(), ref.t.numpy())
     assert cuda_traverse.launch_counts == {"trace_coherent": 0,
-                                           "trace_incoherent": 0}
+                                           "trace_incoherent": 0,
+                                           "trace_meganode": 0}
 
 
 def test_single_leaf_scene():

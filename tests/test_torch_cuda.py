@@ -8,9 +8,15 @@ tests' conftest.py imports JAX, which this file does not need):
 chip_smoke.py checks the same at full scale.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_parity as tp  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +63,53 @@ def test_kernel_matches_plain(gpu_scene, kernel, any_hit):
     pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
     act = active.cpu().numpy()
     assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    if any_hit:
+        assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
+    else:
+        assert np.mean(pk == pp) >= 0.9999
+        m = (pk == pp) & (pk >= 0)
+        np.testing.assert_allclose(rk.t.cpu().numpy()[m], rp.t.cpu().numpy()[m],
+                                   rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def gpu_cornell():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+
+    v, f, _m, _rows, _cam = tp.cornell_spheres_arrays(1.0)
+    dev = torch.device("cuda:0")
+    return build_bvh(v, f, dev), dev
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_meganode_kernel_matches_plain(gpu_cornell, any_hit):
+    """trace_meganode (K3 port) on the Cornell scene: rays from inside the
+    box in all directions, a tenth inactive, some with a finite t_max."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    bvh, dev = gpu_cornell
+    assert bvh.nodes is not None and bvh.nodes.is_cuda
+    rng = np.random.default_rng(1)
+    n = 16384
+    o = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(rng.random(n) < 0.3, rng.uniform(0.2, 2.0, n), np.inf)
+    o, d, t_max = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                   for x in (o, d, t_max))
+    active = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    before = ct.launch_counts["trace_meganode"]
+    rk = ct.trace_meganode(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert ct.launch_counts["trace_meganode"] == before + 1
+    rp = plain.traverse_meganode(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
+    act = active.cpu().numpy()
+    assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    assert (pk >= 0).mean() > 0.5
     if any_hit:
         assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
     else:

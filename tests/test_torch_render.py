@@ -257,9 +257,7 @@ def test_unsupported_features_raise(both):
     from hiprt_pt_tpu_torch.render.renderer import render_step
 
     opts, settings, world = _port_config()
-    for bad in (opts.replace(bsdf_override=ts.BSDFOverride.NONE),
-                opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RIS_BSDF_LIGHT),
-                opts.replace(do_dispersion=True),
+    for bad in (opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RIS_BSDF_LIGHT),
                 opts.replace(white_furnace_mode=True),
                 opts.replace(interior_stack_strategy=ts.InteriorStackStrategy.AUTOMATIC)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -18,6 +18,104 @@ HALL_LO = np.asarray([-9.5, 0.4, -5.5], np.float32)
 HALL_HI = np.asarray([9.5, 5.5, 5.5], np.float32)
 
 
+def _icosphere(subdiv: int):
+    """Unit icosphere (the stress scene's), numpy only: (verts, faces)."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    v = np.asarray([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                    [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                    [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.asarray([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                    [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                    [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                    [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]],
+                   np.int64)
+    for _ in range(subdiv):
+        cache, verts = {}, list(v)
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in cache:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                cache[key] = len(verts) - 1
+            return cache[key]
+
+        nf = []
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v, f = np.asarray(verts, np.float32), np.asarray(nf, np.int64)
+    return v, f
+
+
+# the stress scene's seven principled prop materials (brushed metal, gold,
+# clear glass with dispersion, rough glass, coated paint, velvet, iridescent)
+CORNELL_SPHERE_ROWS = [
+    dict(base_color=[0.95, 0.93, 0.88], metallic=1.0, roughness=0.15,
+         anisotropy=0.8, anisotropy_rotation=0.3),
+    dict(base_color=[1.0, 0.77, 0.34], metallic=1.0, roughness=0.05),
+    dict(base_color=[1, 1, 1], specular_transmission=1.0, ior=1.5,
+         roughness=0.0, absorption_color=[0.9, 0.95, 0.95],
+         absorption_at_distance=0.5, dispersion_scale=1.0),
+    dict(base_color=[1, 1, 1], specular_transmission=1.0, ior=1.5,
+         roughness=0.2, absorption_color=[0.6, 0.9, 0.7],
+         absorption_at_distance=0.3),
+    dict(base_color=[0.6, 0.1, 0.1], coat=1.0, coat_roughness=0.05,
+         roughness=0.4),
+    dict(base_color=[0.2, 0.25, 0.6], sheen=0.8, sheen_color=[0.9, 0.9, 1.0],
+         roughness=0.7),
+    dict(base_color=[0.1, 0.1, 0.1], thin_film=1.0, thin_film_thickness=420.0,
+         thin_film_ior=1.6, metallic=1.0, roughness=0.1),
+]
+
+
+def cornell_spheres_arrays(aspect: float = 1.0):
+    """The procedural Cornell scene, numpy only: a box (white floor,
+    ceiling and back wall, red left and green right wall) widened in x to
+    ``aspect``, a 0.6 x 0.6 ceiling light, and seven radius-0.22
+    icospheres (subdivision 4) on a ring, one per CORNELL_SPHERE_ROWS
+    material: 35,852 triangles. Returns (vertices (V,3) f32, triangles
+    (T,3) i64, material ids (T,) i32, material rows, look-at camera kwargs)."""
+    vs, fs, mids = [], [], []
+
+    def quad(corners, mat):
+        fs.append(np.asarray([[0, 1, 2], [0, 2, 3]], np.int64) + sum(map(len, vs)))
+        vs.append(np.asarray(corners, np.float32))
+        mids.extend([mat, mat])
+
+    rows = [
+        dict(base_color=[0.73, 0.73, 0.73], roughness=1.0, specular=0.0,
+             oren_nayar_sigma=0.0),
+        dict(base_color=[0.65, 0.05, 0.05], roughness=1.0, specular=0.0,
+             oren_nayar_sigma=0.0),
+        dict(base_color=[0.12, 0.45, 0.15], roughness=1.0, specular=0.0,
+             oren_nayar_sigma=0.0),
+        dict(base_color=[0, 0, 0], emission=[1.0, 0.9, 0.75],
+             emission_strength=22.0, specular=0.0, oren_nayar_sigma=0.0),
+    ] + CORNELL_SPHERE_ROWS
+    x = float(max(aspect, 1.0))
+    quad([[-x, 0, -1], [x, 0, -1], [x, 0, 1], [-x, 0, 1]], 0)      # floor
+    quad([[-x, 2, -1], [-x, 2, 1], [x, 2, 1], [x, 2, -1]], 0)      # ceiling
+    quad([[-x, 0, -1], [-x, 2, -1], [x, 2, -1], [x, 0, -1]], 0)    # back
+    quad([[-x, 0, -1], [-x, 0, 1], [-x, 2, 1], [-x, 2, -1]], 1)    # left
+    quad([[x, 0, -1], [x, 2, -1], [x, 2, 1], [x, 0, 1]], 2)        # right
+    h = 1.99
+    quad([[-0.3, h, -0.3], [0.3, h, -0.3], [0.3, h, 0.3], [-0.3, h, 0.3]], 3)
+    sv, sf = _icosphere(4)
+    for k in range(len(CORNELL_SPHERE_ROWS)):
+        a = 2.0 * np.pi * k / len(CORNELL_SPHERE_ROWS)
+        c = np.asarray([0.62 * x * np.cos(a), 0.3 + 0.25 * (k % 3),
+                        0.5 * np.sin(a) - 0.1])
+        fs.append(sf + sum(map(len, vs)))
+        vs.append((sv * 0.22 + c).astype(np.float32))
+        mids.extend([4 + k] * len(sf))
+    camera = dict(eye=[0.0, 1.0, 3.4], target=[0.0, 0.9, 0.0], vfov_deg=40.0,
+                  aspect=float(aspect))
+    return (np.concatenate(vs, 0), np.concatenate(fs, 0),
+            np.asarray(mids, np.int32), rows, camera)
+
+
 def to_numpy_dict(obj):
     """A flax struct (or any dataclass) of JAX arrays → nested numpy dict."""
     out = {}
