@@ -5,37 +5,38 @@
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
-  2. build    — compile the three traversal kernels (nvcc) and the BVH
-                builder (g++).
-  The stress path:
-  3. scene    — the procedural stress interior at full scale (~259k
-                triangles, 120 emitters) and its BVH.
-  4. kernels  — trace_coherent and trace_incoherent against their plain
-                PyTorch version on the card, in closest- and any-hit form,
-                with finite t_max and inactive rays, 1,024 rays also against
-                brute force; then each kernel's and the plain version's time
+  2. build    — compile the five traversal kernels (nvcc, both sources at
+                once) and the BVH builder (g++).
+  Then, for each of the three paths of hiprt_pt_tpu_torch/paths.py:
+  3. scene    — the path's scene and BVH (paths.load), with the host set-up
+                times, the tables on the card and the router's decisions,
+                which must be the path's routes (paths.ROUTES).
+  4. kernels  — each kernel of the path against its plain PyTorch version
+                on the card, in closest- and any-hit form, on 65,536 camera
+                or bounce rays and on the full 1920x1080 wavefront, both
+                with finite t_max and inactive rays; 1,024 rays also against
+                brute force; then the kernel's and the plain version's time
                 on the 1920x1080 wavefront.
-  5. slice    — the renderer at 1920x1080, 4 bounces, Lambertian override,
-                MIS NEE: one warm-up frame and 4 timed frames. Launch counts
-                are reset just before and read just after.
-  6. parity   — one sample at 256x128 rendered on the GPU and on the CPU (plain
-                traversal), compared per pixel.
-  The Cornell path (every ray through trace_meganode):
-  7. scene    — the procedural Cornell box with seven principled spheres
-                (tests/torch_parity.py:cornell_spheres_arrays, 35,852
-                triangles) and its BVH, whose meganode table is kept.
-  8. kernels  — trace_meganode against its plain version, as in phase 4.
-  9. slice    — the renderer at 1920x1080, 4 bounces, the full principled
-                BSDF with dispersion and thin film, MIS NEE, as in phase 5.
-  10. parity  — as phase 6, on the Cornell path.
-The line before the last is the kernels' JSON summary; the last line is the
-run's JSON result. Imports nothing of JAX.
+  5. slice    — the renderer at 1920x1080, 4 bounces, with the path's
+                options (paths.slice_options): one warm-up frame and 4
+                timed frames. Launch counts are reset just before and read
+                just after; the path's kernels, and no other, must launch.
+  6. parity   — one sample at 256x128 rendered on the GPU and on the CPU
+                (plain traversal), compared per pixel.
+  The paths: the stress interior (259,120 triangles; trace_coherent,
+  trace_incoherent), the Cornell box with seven principled spheres (35,852
+  triangles; trace_meganode) and the stress interior at tri_scale=14
+  (2,042,048 triangles, textures, RIS; trace_stream8, trace_lane8log).
+The line before the last is the kernels' JSON summary (each kernel's time on
+the 1080p rays it serves on its path, its plain version's, and its bound:
+the larger of the f32 operations of the plain walk on those rays at
+67 TFLOP/s and the bytes of rays, hit records and tables at 3.35 TB/s); the
+last line is the run's JSON result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -58,14 +59,38 @@ KERNELS = {
     "trace_coherent": "hiprt_pt_tpu/ops/pallas_traverse.py:381",
     "trace_incoherent": "hiprt_pt_tpu/ops/pallas_traverse.py:1866",
     "trace_meganode": "hiprt_pt_tpu/ops/pallas_traverse.py:55",
+    "trace_stream8": "hiprt_pt_tpu/ops/pallas_traverse.py:724",
+    "trace_lane8log": "hiprt_pt_tpu/ops/pallas_traverse.py:1331",
 }
+SOURCE = {k: "hiprt_pt_tpu_torch/csrc/traverse.cu" for k in KERNELS} | {
+    "trace_stream8": "hiprt_pt_tpu_torch/csrc/traverse8.cu",
+    "trace_lane8log": "hiprt_pt_tpu_torch/csrc/traverse8.cu"}
 # the plain PyTorch version of each kernel (ops/traverse.py)
 PLAIN = {"trace_coherent": "traverse", "trace_incoherent": "traverse",
-         "trace_meganode": "traverse_meganode"}
+         "trace_meganode": "traverse_meganode", "trace_stream8": "traverse8",
+         "trace_lane8log": "traverse8"}
 # the rays each kernel is held against and timed on: camera rays of the
 # 1920x1080 wavefront, or cosine bounce rays from their hits
 STRESS_CASES = (("trace_coherent", "camera"), ("trace_incoherent", "bounce"))
 CORNELL_CASES = (("trace_meganode", "camera"), ("trace_meganode", "bounce"))
+STRESS14_CASES = tuple((k, kind) for k in ("trace_stream8", "trace_lane8log")
+                       for kind in ("camera", "bounce"))
+# the rays of its path each kernel's ms and bound are reported on
+SERVES = {"trace_coherent": "camera", "trace_incoherent": "bounce",
+          "trace_meganode": "camera", "trace_stream8": "camera",
+          "trace_lane8log": "bounce"}
+# a kernel's bound (H100 SXM peak rates): f32
+# operations of the plain walk on the rays over the f32 rate, and bytes
+# (each ray in once: o, d, t_min, t_max, active = 33 B; each hit record out
+# once: t, prim, u, v = 16 B; each table once) over the memory rate
+F32_OPS_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+RAY_BYTES, HIT_BYTES = 33, 16
+# a slab test: 6 sub + 6 mul, 6 min/max of the pairs, 3 + 3 min/max of the
+# entry and exit, 1 compare; a triangle test (Moller-Trumbore): two cross
+# products (18), four 3-term dots (20), the edge vector (3), u and v and t
+# scaled (3), the reciprocal (1), 7 compares and the u + v sum (8)
+SLAB_OPS, TRI_OPS = 25, 53
 
 
 def log(*a):
@@ -100,26 +125,38 @@ def phase_build():
     log(f"[build] kernels {t1 - t0:.2f} s, bvh builder {t2 - t1:.2f} s")
 
 
-def phase_scene(dev):
-    from hiprt_pt_tpu_torch.accel.build import build_bvh
-    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
+def phase_scene(tag, dev):
+    """A path's scene and tables (hiprt_pt_tpu_torch/paths.py), with its
+    host set-up times, table sizes and routes."""
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.ops.routing import route
 
-    t0 = time.perf_counter()
-    scene, cam = load_stress_scene(aspect=WIDTH / HEIGHT, seed=7, tri_scale=1.0,
-                                   num_emitters=120, with_textures=False,
-                                   device=dev)
-    t1 = time.perf_counter()
-    bvh = build_bvh(scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy(),
-                    dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    log(f"[scene] {scene.num_triangles} triangles, {scene.num_emissives} "
-        f"emissive triangles ({(scene.num_emissives + 1) // 2} emitters), "
-        f"scene {t1 - t0:.2f} s, BVH build {t2 - t1:.3f} s, "
-        f"nodes4 {tuple(bvh.nodes4.shape)} leaf_rows {tuple(bvh.leaf_rows.shape)} "
-        f"depth4 {bvh.depth4}, tables {bvh.nbytes} bytes")
-    assert scene.num_triangles > 250_000 and scene.num_emissives == 240
-    return scene, cam, bvh, t2 - t1
+    scene, cam, bvh, secs = paths.load(tag, dev)
+    routes = (route(bvh, True), route(bvh, False))
+    tables = {k: tuple(getattr(bvh, k).shape)
+              for k in ("nodes4", "leaf_rows", "nodes8l", "leaf_rows8", "nodes")
+              if getattr(bvh, k) is not None}
+    tex = scene.textures
+    log(f"[{tag} scene] {scene.num_triangles} triangles, {scene.num_emissives} "
+        f"emissive triangles, "
+        f"{0 if tex is None else tex.num_layers} textures"
+        f"{'' if tex is None else f' (atlas {tuple(tex.texels.shape)}, kinds {tex.kinds_used})'}, "
+        f"{scene.materials.ior.shape[0]} materials; set-up: scene "
+        f"{secs['scene']:.3f} s, BVH build {secs['bvh']:.3f} s; tables on the "
+        f"card {tables}, {bvh.nbytes} bytes; depth4 {bvh.depth4}, depth8 "
+        f"{bvh.depth8}, depth2 {bvh.depth2}, lane8 {bvh.lane8}; routes: "
+        f"coherent {routes[0]}, incoherent {routes[1]}")
+    expect = {"stress": (259_120, 240, 0), "cornell": (35_852, 2, 0),
+              "stress14": (2_042_048, 240, 18)}[tag]
+    got = (scene.num_triangles, scene.num_emissives,
+           0 if tex is None else tex.num_layers)
+    if got != expect:
+        raise AssertionError(f"the {tag} scene has (triangles, emissive "
+                             f"triangles, textures) {got}, expected {expect}")
+    if routes != paths.ROUTES[tag]:
+        raise AssertionError(f"the {tag} scene routes to {routes}, expected "
+                             f"{paths.ROUTES[tag]}")
+    return scene, cam, bvh
 
 
 def camera_rays(cam, width, height):
@@ -130,15 +167,15 @@ def camera_rays(cam, width, height):
     return generate_camera_rays(cam, width, height, None, px, py)
 
 
-def bounce_rays(scene, bvh, o, d, seed):
-    """Incoherent rays: origins at the camera hits, cosine-hemisphere
-    directions (numpy, seeded) around the face-forwarded geometric normal.
-    Rays whose camera ray missed are inactive."""
+def bounce_rays(scene, bvh, o, d, seed, walk):
+    """Incoherent rays: origins at the camera hits (found by the plain walk
+    ``walk``), cosine-hemisphere directions (numpy, seeded) around the
+    face-forwarded geometric normal. Rays whose camera ray missed are
+    inactive."""
     from hiprt_pt_tpu_torch.ops.intersect import offset_ray_origin
     from hiprt_pt_tpu_torch.ops.sampling import sample_cosine_hemisphere
-    from hiprt_pt_tpu_torch.ops.traverse import closest_hit
 
-    rec = closest_hit(bvh, o, d, t_min=0.0)
+    rec = walk(bvh, o, d, t_min=0.0)
     hit = rec.prim >= 0
     ng = scene.tri_data[rec.prim.clamp_min(0).long(), 25:28]
     ng = torch.where(((ng * d).sum(-1, keepdim=True) > 0.0), -ng, ng)
@@ -196,27 +233,45 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def bound(bvh, kernel, n, stats):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    the plain walk's work on n rays (see F32_OPS_PER_S above)."""
+    from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES
+
+    ops = stats["box_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS
+    nbytes = n * (RAY_BYTES + HIT_BYTES) + sum(
+        getattr(bvh, t).numel() * 4 for t in KERNEL_TABLES[kernel])
+    op_ms, byte_ms = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms > byte_ms else "bytes")
+
+
+def limits(n, seed, dev):
+    """Seeded (t_max, active) for n rays: a quarter of the rays get a finite
+    t_max, a tenth are inactive."""
+    rng = np.random.default_rng(seed)
+    tmax = np.where(rng.random(n) < 0.25,
+                    rng.uniform(0.2, 4.0, n), np.inf).astype(np.float32)
+    act = rng.random(n) >= 0.1
+    return torch.from_numpy(tmax).to(dev), torch.from_numpy(act).to(dev)
+
+
 def phase_kernels(scene, cam, bvh, dev, cases):
     """Each (kernel, ray kind) of ``cases`` against the kernel's plain
     version and brute force, then both timed on the 1080p wavefront.
-    Returns ({kernel: max |dt|}, {(kernel, kind, any_hit): (ms, plain ms)})."""
+    Returns ({kernel: max |dt|}, {(kernel, kind, any_hit): (ms, plain ms)},
+    {kernel: (bound ms, bound_by)} on the rays it serves)."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.ops import traverse as plain
     from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest
 
+    first_walk = getattr(plain, PLAIN[cases[0][0]])
     side = int(np.sqrt(PARITY_RAYS))
     o_c, d_c = camera_rays(cam, side, side)
-    o_i, d_i, hit_c = bounce_rays(scene, bvh, o_c, d_c, seed=1)
-    rng = np.random.default_rng(2)
-    n = o_c.shape[0]
-    # a quarter of the rays get a finite t_max, a tenth are inactive
-    tmax_np = np.where(rng.random(n) < 0.25,
-                       rng.uniform(0.2, 4.0, n), np.inf).astype(np.float32)
-    act_np = rng.random(n) >= 0.1
-    tmax = torch.from_numpy(tmax_np).to(dev)
-    act = torch.from_numpy(act_np).to(dev)
+    o_i, d_i, hit_c = bounce_rays(scene, bvh, o_c, d_c, 1, first_walk)
+    tmax, act = limits(o_c.shape[0], 2, dev)
     rays = {"camera": (o_c, d_c, act), "bounce": (o_i, d_i, act & hit_c)}
     errs = {}
+    plain_recs = {}
     for kname, kind in cases:
         kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
         o, d, a = rays[kind]
@@ -224,10 +279,13 @@ def phase_kernels(scene, cam, bvh, dev, cases):
         for any_hit in (False, True):
             t_min = 1e-4 if any_hit else 0.0
             rk = kern(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
-            rp = walk(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
+            key = (PLAIN[kname], kind, any_hit)
+            if key not in plain_recs:
+                plain_recs[key] = walk(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
             torch.cuda.synchronize()
             tag = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
-            errs[kname] = max(errs[kname], compare(tag, rk, rp, any_hit, a))
+            errs[kname] = max(errs[kname],
+                              compare(tag, rk, plain_recs[key], any_hit, a))
         # brute force on 1,024 active rays with an unbounded t_max
         sel = torch.nonzero(a & torch.isinf(tmax)).squeeze(1)[:BRUTE_RAYS]
         rk = kern(bvh, o[sel].contiguous(), d[sel].contiguous(), 0.0)
@@ -236,13 +294,32 @@ def phase_kernels(scene, cam, bvh, dev, cases):
         rb = plain.HitRecord(t=bt, prim=bp, u=_bu, v=_bv)
         compare(f"{kname}[{kind}, brute force]", rk, rb, False,
                 torch.ones_like(sel, dtype=torch.bool))
+    del plain_recs
 
-    # the full 1080p wavefront: time, and compare once more at this shape
+    # the full 1080p wavefront: compare with finite t_max and inactive rays,
+    # then time, and compare the timed results too
     o_f, d_f = camera_rays(cam, WIDTH, HEIGHT)
-    o_b, d_b, hit_f = bounce_rays(scene, bvh, o_f, d_f, seed=3)
+    o_b, d_b, hit_f = bounce_rays(scene, bvh, o_f, d_f, 3, first_walk)
+    tmax_f, act_f = limits(o_f.shape[0], 4, dev)
     full = {"camera": (o_f, d_f, torch.ones_like(hit_f)),
             "bounce": (o_b, d_b, hit_f)}
-    times = {}
+    plain_recs = {}
+    for kname, kind in cases:
+        kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
+        o, d, a = full[kind]
+        a = a & act_f
+        for any_hit in (False, True):
+            t_min = 1e-4 if any_hit else 0.0
+            rk = kern(bvh, o, d, t_min, tmax_f, a, any_hit=any_hit)
+            key = (PLAIN[kname], kind, any_hit)
+            if key not in plain_recs:
+                plain_recs[key] = walk(bvh, o, d, t_min, tmax_f, a, any_hit=any_hit)
+            tag = (f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p, "
+                   f"finite t_max]")
+            errs[kname] = max(errs[kname],
+                              compare(tag, rk, plain_recs[key], any_hit, a))
+    del plain_recs
+    times, plain_ms, bounds = {}, {}, {}
     for kname, kind in cases:
         kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
         o, d, a = full[kind]
@@ -250,47 +327,39 @@ def phase_kernels(scene, cam, bvh, dev, cases):
             t_min = 1e-4 if any_hit else 0.0
             k_ms, rk = cuda_ms(lambda: kern(bvh, o, d, t_min, float("inf"), a,
                                             any_hit=any_hit), reps=5)
-            p_ms, rp = cuda_ms(lambda: walk(bvh, o, d, t_min, float("inf"), a,
-                                            any_hit=any_hit), reps=1)
+            key = (PLAIN[kname], kind, any_hit)
+            if key not in plain_ms:
+                plain_ms[key] = cuda_ms(lambda: walk(
+                    bvh, o, d, t_min, float("inf"), a, any_hit=any_hit), reps=1)
+            p_ms, rp = plain_ms[key]
             tag = f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p]"
             errs[kname] = max(errs[kname], compare(tag, rk, rp, any_hit, a))
             times[(kname, kind, any_hit)] = (k_ms, p_ms)
             log(f"[kernels] {kname} {'any-hit' if any_hit else 'closest'} on "
                 f"{o.shape[0]} {kind} rays: kernel {k_ms:.3f} ms, plain "
                 f"{p_ms:.3f} ms ({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
-    return errs, times
+        if kind == SERVES[kname]:
+            stats = {}
+            getattr(plain, PLAIN[kname])(bvh, o, d, 0.0, float("inf"), a,
+                                         stats=stats)
+            bounds[kname] = bound(bvh, kname, o.shape[0], stats)
+            log(f"[kernels] {kname} bound on {o.shape[0]} {kind} rays: "
+                f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]}); plain walk "
+                f"{stats}")
+    return errs, times, bounds
 
 
-def slice_options(cornell: bool):
-    """The stress path: Lambertian override, no dispersion. The Cornell
-    path: the defaults, i.e. the full principled BSDF with dispersion and
-    thin film. Both with MIS NEE, 4 bounces and ambient NONE."""
-    from hiprt_pt_tpu_torch.core.settings import (
-        AmbientLightType, BSDFOverride, LightSamplingStrategy, RenderOptions,
-        RenderSettings, WorldSettings)
-
-    opts = RenderOptions(direct_light_sampling=LightSamplingStrategy.MIS,
-                         max_bounces_static=4)
-    if cornell:
-        assert opts.bsdf_override == BSDFOverride.NONE
-        assert opts.do_dispersion and opts.do_thin_film
-    else:
-        opts = opts.replace(bsdf_override=BSDFOverride.LAMBERTIAN,
-                            do_dispersion=False)
-    settings = RenderSettings(nb_bounces=4, samples_per_frame=1)
-    world = WorldSettings(ambient_light_type=int(AmbientLightType.NONE))
-    return opts, settings, world
-
-
-def phase_slice(tag, scene, cam, bvh, cornell, kernels):
+def phase_slice(tag, scene, cam, bvh, kernels):
     """One warm-up frame and 4 timed frames at 1920x1080. Every kernel of
     ``kernels`` must be launched in them, and no other."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
-    opts, settings, world = slice_options(cornell)
+    opts, settings, world = slice_options(tag)
     r = Renderer(scene, cam, WIDTH, HEIGHT, options=opts, settings=settings,
                  world=world, bvh=bvh, seed=42)
+    torch.cuda.reset_peak_memory_stats()
     ct.reset_launch_counts()
     r.step()  # warm-up frame
     torch.cuda.synchronize()
@@ -313,7 +382,9 @@ def phase_slice(tag, scene, cam, bvh, cornell, kernels):
     log(f"[{tag} slice] {WIDTH}x{HEIGHT}, 4 bounces, {frames} timed frames: "
         f"{ms:.1f} ms ({ms / frames:.2f} ms/frame; {wall * 1e3:.1f} ms host "
         f"clock), {rays} rays, {rays / ms / 1e3:.3f} Mrays/s, "
-        f"{frames / ms * 1e3:.3f} spp/s; launches {launches}; image mean "
+        f"{frames / ms * 1e3:.3f} spp/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}; image mean "
         f"{float(img.mean()):.6f}, non-black {nonblack:.4f}")
     for k, v in launches.items():
         if (v > 0) != (k in kernels):
@@ -327,10 +398,11 @@ def phase_slice(tag, scene, cam, bvh, cornell, kernels):
     return launches
 
 
-def phase_parity(tag, scene, cam, bvh, cornell):
+def phase_parity(tag, scene, cam, bvh):
+    from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
-    opts, settings, world = slice_options(cornell)
+    opts, settings, world = slice_options(tag)
     w, h = 256, 128
     cpu = torch.device("cpu")
     scene_cpu = scene.to(cpu)
@@ -354,70 +426,42 @@ def phase_parity(tag, scene, cam, bvh, cornell):
         raise AssertionError(f"{tag}: GPU render disagrees with the CPU render")
 
 
-def phase_cornell_scene(dev):
-    """The procedural Cornell scene of the tests, at the 16:9 aspect."""
-    from hiprt_pt_tpu_torch.accel.build import MAX_MEGANODE_ROWS, build_bvh
-    from hiprt_pt_tpu_torch.assets.scene import build_scene
-    from hiprt_pt_tpu_torch.core.camera import camera_from_lookat
-    from hiprt_pt_tpu_torch.core.material import MaterialBank
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "tests"))
-    from torch_parity import cornell_spheres_arrays
-
-    t0 = time.perf_counter()
-    v, f, m, rows, cam_kw = cornell_spheres_arrays(WIDTH / HEIGHT)
-    scene = build_scene(v, f, m, MaterialBank.from_rows(rows), device=dev)
-    cam = camera_from_lookat(**cam_kw, device=dev)
-    t1 = time.perf_counter()
-    bvh = build_bvh(v, f, dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    rows_n = 0 if bvh.nodes is None else bvh.nodes.shape[0]
-    log(f"[cornell scene] {scene.num_triangles} triangles, "
-        f"{scene.num_emissives} emissive triangles, {len(rows)} materials, "
-        f"scene {t1 - t0:.2f} s, BVH build {t2 - t1:.3f} s, meganode rows "
-        f"{rows_n} (cap {MAX_MEGANODE_ROWS}), depth2 {bvh.depth2}, "
-        f"tables {bvh.nbytes} bytes")
-    if bvh.nodes is None or not 0 < rows_n <= MAX_MEGANODE_ROWS:
-        raise AssertionError("the Cornell scene's meganode table is not kept")
-    assert scene.num_triangles == 35_852
-    return scene, cam, bvh
-
-
 def main() -> int:
     name = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     phase_build()
-    scene, cam, bvh, _build_s = phase_scene(dev)
-    errs, times = phase_kernels(scene, cam, bvh, dev, STRESS_CASES)
-    launches = phase_slice("stress", scene, cam, bvh, False,
-                           {k for k, _ in STRESS_CASES})
-    phase_parity("stress", scene, cam, bvh, False)
-    del scene, cam, bvh
-
-    scene, cam, bvh = phase_cornell_scene(dev)
-    c_errs, c_times = phase_kernels(scene, cam, bvh, dev, CORNELL_CASES)
-    c_launches = phase_slice("cornell", scene, cam, bvh, True,
-                             {k for k, _ in CORNELL_CASES})
-    phase_parity("cornell", scene, cam, bvh, True)
-    errs.update(c_errs)
-    times.update(c_times)
-    launches.update({k: c_launches[k] for k, _ in CORNELL_CASES})
+    errs, times, bounds, launches = {}, {}, {}, {}
+    paths = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
+             ("stress14", STRESS14_CASES))
+    for tag, cases in paths:
+        scene, cam, bvh = phase_scene(tag, dev)
+        e, t, b = phase_kernels(scene, cam, bvh, dev, cases)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        times.update(t)
+        bounds.update(b)
+        counts = phase_slice(tag, scene, cam, bvh, {k for k, _ in cases})
+        launches.update({k: counts[k] for k, _ in cases})
+        phase_parity(tag, scene, cam, bvh)
+        del scene, cam, bvh
+        torch.cuda.empty_cache()
 
     # ms and plain ms: closest hit on the 1080p rays each kernel serves
-    timed = dict(STRESS_CASES + CORNELL_CASES[:1])
     kernels = [{
         "name": k,
         "route": "cuda",
-        "source": "hiprt_pt_tpu_torch/csrc/traverse.cu",
+        "source": SOURCE[k],
         "replaces": KERNELS[k],
         "launches": launches[k],
         "max_abs_err": errs[k],
-        "ms": times[(k, timed[k], False)][0],
-        "plain_ms": times[(k, timed[k], False)][1],
+        "ms": times[(k, SERVES[k], False)][0],
+        "plain_ms": times[(k, SERVES[k], False)][1],
+        "bound_ms": bounds[k][0],
+        "bound_by": bounds[k][1],
+        # no PyTorch call computes a BVH walk
+        "library_ms": None,
     } for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

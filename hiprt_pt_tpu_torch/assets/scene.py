@@ -3,8 +3,9 @@
 
 ``build_scene`` packs the per-triangle hit attributes (``tri_data``) and the
 emissive-triangle sampling tables in numpy with the JAX package's numbers,
-then moves them to ``device``. Envmaps and textures are not ported yet, so
-both stay ``None``.
+then moves them to ``device``. Textures come as a ``TextureAtlas``
+(assets/textures.py); envmaps are not ported yet, so ``envmap`` stays
+``None``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,57 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..core.device import resolve_device
+
+
+TEXTURE_KIND_FIELDS = {
+    "base": "base_color_texture_index",
+    "mr": "roughness_metallic_texture_index",
+    "em": "emission_texture_index",
+    "normal": "normal_map_texture_index",
+    "rough": "roughness_texture_index",
+    "metal": "metallic_texture_index",
+    "spec": "specular_texture_index",
+    "coat": "coat_texture_index",
+    "sheen": "sheen_texture_index",
+    "trans": "specular_transmission_texture_index",
+}
+
+
+@dataclasses.dataclass
+class TextureAtlas:
+    """Material textures at their own resolutions in one flat uint8 buffer,
+    with per-texture offset and size tables and a box-filtered mip chain
+    (the JAX package's ``TextureAtlas``, same layout and numbers)."""
+
+    # (TOTAL, 16) u8: per texel its wrap-addressed 2x2 bilinear footprint
+    # [(y,x),(y,x+1),(y+1,x),(y+1,x+1)] RGBA — or (TOTAL, 4) plain texels
+    # when ``footprint`` is False (atlases above FOOTPRINT_MAX_TEXELS)
+    texels: torch.Tensor
+    offsets: torch.Tensor     # (L, MAX_MIPS) i32 — first texel per level, -1 pad
+    widths: torch.Tensor      # (L,) i32 — level-0 width
+    heights: torch.Tensor     # (L,) i32
+    num_levels: torch.Tensor  # (L,) i32
+    is_srgb: torch.Tensor     # (L,) bool — decoded at fetch
+    has_alpha: bool = True    # does any texel have alpha < 1
+    # the texture kinds (TEXTURE_KIND_FIELDS) some material references, and
+    # those whose referenced layers are sRGB somewhere / everywhere (set by
+    # build_scene); a kind no material references is never fetched
+    kinds_used: tuple = tuple(TEXTURE_KIND_FIELDS)
+    kinds_srgb_any: tuple = tuple(TEXTURE_KIND_FIELDS)
+    kinds_srgb_all: tuple = ()
+    footprint: bool = True
+
+    @property
+    def num_layers(self) -> int:
+        return self.widths.shape[0]
+
+    def to(self, device) -> "TextureAtlas":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 @dataclasses.dataclass
@@ -51,7 +103,9 @@ class SceneData:
         kw = {f.name: getattr(self, f.name).to(device)
               for f in dataclasses.fields(self)
               if isinstance(getattr(self, f.name), torch.Tensor)}
-        return dataclasses.replace(self, materials=self.materials.to(device), **kw)
+        textures = None if self.textures is None else self.textures.to(device)
+        return dataclasses.replace(self, materials=self.materials.to(device),
+                                   textures=textures, **kw)
 
 
 def vose_alias(weights: np.ndarray):
@@ -87,12 +141,36 @@ def compute_triangle_areas(vertices: np.ndarray, triangles: np.ndarray) -> np.nd
     return 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
 
 
+def texture_kinds(textures: TextureAtlas, materials) -> TextureAtlas:
+    """The atlas with the kinds the material bank references, and their
+    sRGB flags, filled in (as the JAX package's build_scene does)."""
+    srgb = textures.is_srgb.cpu().numpy()
+    kinds, srgb_any, srgb_all = [], [], []
+    for kind, field in TEXTURE_KIND_FIELDS.items():
+        idx = getattr(materials, field).cpu().numpy()
+        ref = idx[idx >= 0]
+        if not len(ref):
+            continue
+        kinds.append(kind)
+        if bool(srgb[ref].any()):
+            srgb_any.append(kind)
+        if bool(srgb[ref].all()):
+            srgb_all.append(kind)
+    return dataclasses.replace(textures, kinds_used=tuple(kinds),
+                               kinds_srgb_any=tuple(srgb_any),
+                               kinds_srgb_all=tuple(srgb_all))
+
+
 def build_scene(vertices: np.ndarray, triangles: np.ndarray,
                 material_ids: np.ndarray, materials,
                 normals: Optional[np.ndarray] = None,
                 uvs: Optional[np.ndarray] = None,
-                device="cpu") -> SceneData:
-    """Assemble a SceneData from host numpy arrays; derives the emissive list."""
+                textures: Optional[TextureAtlas] = None,
+                device=None) -> SceneData:
+    """Assemble a SceneData on ``device`` (default: the GPU, see
+    core/device.py:resolve_device) from host numpy arrays; derives the
+    emissive list."""
+    device = resolve_device(device)
     vertices = np.asarray(vertices, dtype=np.float32)
     triangles = np.asarray(triangles, dtype=np.int32)
     material_ids = np.asarray(material_ids, dtype=np.int32)
@@ -213,4 +291,6 @@ def build_scene(vertices: np.ndarray, triangles: np.ndarray,
         emissive_rows=t(em_rows),
         emissive_slot_of_tri=t(slot_of_tri),
         emissive_total_area=float(total_area),
+        textures=None if textures is None
+        else texture_kinds(textures, materials).to(device),
     )

@@ -472,6 +472,7 @@ def generate_stress_scene(
         target=(W / 2, 1.6, 0.0),
         vfov_deg=55.0,
         aspect=1.0,
+        device="cpu",  # a host parse result, like the arrays beside it
     )
     return ParsedScene(
         vertices=vertices,
@@ -488,20 +489,18 @@ def generate_stress_scene(
 def load_stress_scene(aspect: float = 1.0, seed: int = 7,
                       tri_scale: float = 1.0, num_emitters: int = 120,
                       with_textures: bool = True, texture_size: int = 256,
-                      device="cpu"):
-    """(SceneData, Camera) for the stress workload on ``device``.
-
-    The texture path is not ported yet (ROADMAP, "Modules still to port":
-    ops/texture.py + assets/textures.py), so ``with_textures=True`` raises.
-    """
+                      device=None):
+    """(SceneData, Camera) for the stress workload on ``device`` (default:
+    the GPU, see core/device.py:resolve_device); with ``with_textures`` its
+    18 procedural textures in a TextureAtlas."""
     from ..core.camera import Camera
+    from ..core.device import resolve_device
     from ..core.material import MaterialBank
-    from .scene import build_scene
 
-    if with_textures:
-        raise NotImplementedError(
-            "textures are not ported yet (ROADMAP: ops/texture.py + "
-            "assets/textures.py); pass with_textures=False")
+    device = resolve_device(device)
+    from .scene import build_scene
+    from .textures import build_texture_atlas, srgb_texture_indices
+
     parsed = generate_stress_scene(
         seed=seed, tri_scale=tri_scale, num_emitters=num_emitters,
         texture_size=texture_size,
@@ -512,13 +511,20 @@ def load_stress_scene(aspect: float = 1.0, seed: int = 7,
         proj[0, 0] = proj[1, 1] / aspect
         cam = Camera.from_matrices(
             cam.view.cpu().numpy(), cam.view_inv.cpu().numpy(), proj,
-            np.linalg.inv(proj), cam.vfov, cam.near, cam.far, cam.do_jitter)
+            np.linalg.inv(proj), cam.vfov, cam.near, cam.far, cam.do_jitter,
+            device=device)
+    atlas = None
+    if with_textures and parsed.images:
+        atlas = build_texture_atlas(
+            parsed.images, srgb_texture_indices(parsed.material_rows),
+            layer_size=texture_size)
     scene = build_scene(
         parsed.vertices,
         parsed.triangles,
         parsed.material_ids,
         MaterialBank.from_rows(parsed.material_rows),
         uvs=parsed.uvs,
+        textures=atlas,
         device=device,
     )
     return scene, cam.to(device)

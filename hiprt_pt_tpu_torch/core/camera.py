@@ -9,6 +9,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 
 def perspective_matrix(vfov_rad: float, aspect: float, near: float, far: float):
     """Right-handed OpenGL-style projection (matches GLTF camera conventions)."""
@@ -40,7 +42,7 @@ class Camera:
     @classmethod
     def create(cls, view: np.ndarray, vfov_rad: float, aspect: float,
                near: float = 0.1, far: float = 100.0,
-               do_jitter: bool = True, device="cpu") -> "Camera":
+               do_jitter: bool = True, device=None) -> "Camera":
         proj = perspective_matrix(vfov_rad, aspect, near, far)
         view = np.asarray(view, dtype=np.float32)
         view_inv = np.linalg.inv(view)
@@ -49,7 +51,11 @@ class Camera:
 
     @classmethod
     def from_matrices(cls, view, view_inv, proj, proj_inv, vfov, near, far,
-                      do_jitter=True, device="cpu") -> "Camera":
+                      do_jitter=True, device=None) -> "Camera":
+        """A camera on ``device`` (default: the GPU, see
+        core/device.py:resolve_device)."""
+        device = resolve_device(device)
+
         def t(x):
             return torch.tensor(np.asarray(x, np.float32), device=device)
 
@@ -67,7 +73,7 @@ class Camera:
 
 
 def camera_from_lookat(eye, target, up=(0.0, 1.0, 0.0), vfov_deg=45.0,
-                       aspect=1.0, device="cpu") -> Camera:
+                       aspect=1.0, device=None) -> Camera:
     eye = np.asarray(eye, dtype=np.float32)
     target = np.asarray(target, dtype=np.float32)
     up = np.asarray(up, dtype=np.float32)

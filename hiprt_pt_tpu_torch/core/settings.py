@@ -106,6 +106,15 @@ class RenderOptions:
 
 
 @dataclasses.dataclass
+class RISSettings:
+    """Candidate counts of RIS direct lighting (lights/ris.py; reference:
+    RenderSettings.h RISSettings)."""
+
+    number_of_light_candidates: int = 4
+    number_of_bsdf_candidates: int = 1
+
+
+@dataclasses.dataclass
 class RenderSettings:
     """Runtime knobs of the render step (the fields the port reads)."""
 
@@ -129,6 +138,7 @@ class RenderSettings:
     rr_method: int = int(RussianRouletteMethod.MAX_THROUGHPUT)
     number_of_light_samples: int = 1
     freeze_random: bool = False
+    ris: RISSettings = dataclasses.field(default_factory=RISSettings)
 
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)

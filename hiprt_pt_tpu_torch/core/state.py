@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from .device import resolve_device
+
 
 @dataclasses.dataclass
 class GBuffer:
@@ -29,7 +31,7 @@ class GBuffer:
     backface: torch.Tensor          # (N,) bool
 
     @classmethod
-    def empty(cls, n: int, device="cpu") -> "GBuffer":
+    def empty(cls, n: int, device) -> "GBuffer":
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
             position=torch.zeros((n, 3), **f32),
@@ -74,7 +76,10 @@ class RenderState:
 
 
 def init_render_state(width: int, height: int, seed: int = 42,
-                      device="cpu") -> RenderState:
+                      device=None) -> RenderState:
+    """A fresh render state on ``device`` (default: the GPU, see
+    core/device.py:resolve_device)."""
+    device = resolve_device(device)
     n = width * height
     f32 = dict(dtype=torch.float32, device=device)
     return RenderState(

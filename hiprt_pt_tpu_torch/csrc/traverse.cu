@@ -30,144 +30,14 @@
 // (persistent threads, TMA-staged leaves, compressed nodes) are left for
 // later.
 //
-// Rounding: the file is built with -fmad=false, so the triangle test rounds
-// every product and sum exactly as the plain PyTorch version does, and the
-// two agree bit for bit where they visit the same triangles.
+// The shared device helpers (ray record, slab and triangle tests, the tie
+// rule) are in traverse_common.cuh.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int kStack = 64;       // traversal stack entries (host checks depth)
-constexpr int kLeafTris = 12;    // triangle slots of a leaf row
-constexpr int kLeafFloats = 128;
-constexpr int kPacket = 128;     // rays per packet = one 16x8 screen tile
-constexpr float kTriEps = 1e-9f;
-constexpr int kMegaRowFloats = 128;  // a meganode row (accel/build.py nodes)
-constexpr int kMegaLeafTris = 4;     // triangle slots per child of a row
-constexpr int kMegaStack = 64;       // far-sibling entries (host checks depth2)
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
-};
-
-__device__ __forceinline__ float inverse_component(float c) {
-  // 1/c, or -1e12 for a tiny negative c and +1e12 for a tiny positive c or
-  // ±0 (ops/traverse.py:inverse_direction; the JAX package's guard gives 0
-  // for a tiny negative c, which collapses that axis's slab)
-  if (fabsf(c) > 1e-12f) return 1.0f / c;
-  return c < 0.0f ? -1e12f : 1e12f;
-}
-
-__device__ __forceinline__ Ray load_ray(const float* o, const float* d,
-                                        const float* tmin, int64_t i) {
-  Ray r;
-  r.ox = o[3 * i + 0];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i + 0];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  r.ix = inverse_component(r.dx);
-  r.iy = inverse_component(r.dy);
-  r.iz = inverse_component(r.dz);
-  r.tmin = tmin[i];
-  return r;
-}
-
-// Slab test of one child box b[0..5] = min xyz, max xyz. An empty slot has a
-// NaN box; fminf/fmaxf drop NaN, so it is tested explicitly.
-__device__ __forceinline__ bool slab(const float* b, const Ray& r,
-                                     float best_t, float& t_entry) {
-  if (isnan(b[0])) return false;
-  const float tx0 = (b[0] - r.ox) * r.ix, tx1 = (b[3] - r.ox) * r.ix;
-  const float ty0 = (b[1] - r.oy) * r.iy, ty1 = (b[4] - r.oy) * r.iy;
-  const float tz0 = (b[2] - r.oz) * r.iz, tz1 = (b[5] - r.oz) * r.iz;
-  const float te = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                         fmaxf(fminf(tz0, tz1), 0.0f));
-  const float tx = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                         fminf(fmaxf(tz0, tz1), best_t));
-  t_entry = te;
-  return te <= tx;
-}
-
-// Möller-Trumbore in ops/intersect.py:triangle_test's operation order.
-// A hit must beat the best so far; an equal-t tie goes to the smaller prim
-// id, so the order of the walk does not pick the winner among triangles it
-// tests (a box culled at exactly the tied t is not tested). prim_f points at
-// the triangle's prim id (int32 bits), read only for a candidate hit.
-__device__ __forceinline__ bool triangle(const float* tri, const float* prim_f,
-                                         const Ray& r, float best_t,
-                                         int best_prim, float& t_out,
-                                         float& u_out, float& v_out,
-                                         int& prim_out) {
-  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool ok_det = fabsf(det) > kTriEps;
-  const float inv_det = ok_det ? 1.0f / det : 0.0f;
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  if (!(ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > r.tmin)) {
-    return false;
-  }
-  const int prim = __float_as_int(*prim_f);
-  if (!(t < best_t || (t == best_t && best_prim >= 0 && prim < best_prim))) {
-    return false;
-  }
-  t_out = t;
-  u_out = u;
-  v_out = v;
-  prim_out = prim;
-  return true;
-}
-
-__device__ __forceinline__ void load_node(const float4* __restrict__ nodes4,
-                                          int ref, float* box, int* refs) {
-  const float4* nd = nodes4 + (int64_t)ref * 8;
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    const float4 q = __ldg(nd + j);
-    box[4 * j + 0] = q.x;
-    box[4 * j + 1] = q.y;
-    box[4 * j + 2] = q.z;
-    box[4 * j + 3] = q.w;
-  }
-  const float4 q = __ldg(nd + 6);
-  refs[0] = __float_as_int(q.x);
-  refs[1] = __float_as_int(q.y);
-  refs[2] = __float_as_int(q.z);
-  refs[3] = __float_as_int(q.w);
-}
-
-__device__ __forceinline__ void swap_if(float& ka, int& ra, float& kb, int& rb) {
-  if (ka > kb) {
-    const float k = ka; ka = kb; kb = k;
-    const int r = ra; ra = rb; rb = r;
-  }
-}
-
-__device__ __forceinline__ void write_hit(int64_t i, bool any_hit, int prim,
-                                          float t, float u, float v,
-                                          float* t_out, int32_t* prim_out,
-                                          float* u_out, float* v_out) {
-  const bool hit = prim >= 0;
-  t_out[i] = hit ? t : INFINITY;
-  prim_out[i] = prim;
-  u_out[i] = (hit && !any_hit) ? u : 0.0f;
-  v_out[i] = (hit && !any_hit) ? v : 0.0f;
-}
+using namespace hpt;
 
 // K1 port: one thread per ray, a private 64-entry stack in local memory.
 // Hit children are pushed far-to-near (a 4-input sorting network on the

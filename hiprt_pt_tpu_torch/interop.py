@@ -3,7 +3,8 @@
 The JAX package's ``SceneData``, ``BVHData`` and ``RenderState`` are given as
 dicts of numpy arrays keyed by field name (nested dicts for the material
 bank and the G-buffers), so this module imports nothing of JAX. ``to_numpy``
-turns a port dataclass back into such a dict.
+turns a port dataclass back into such a dict. Each ``*_from_numpy`` puts its
+tensors on ``device``: the GPU unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,8 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .accel.build import MAX_MEGANODE_ROWS, BVHData, meganode_depth
-from .assets.scene import SceneData
+from .accel.build import (MAX_MEGANODE_ROWS, BVHData, Lane8Sizes, depth8_of,
+                          meganode_depth)
+from .assets.scene import SceneData, TextureAtlas
+from .core.device import resolve_device
 from .core.material import FIELD_NAMES, MaterialBank
 from .core.state import GBuffer, RenderState
 
@@ -23,11 +26,23 @@ def _t(x, device):
     return torch.from_numpy(np.array(x)).to(device)
 
 
-def scene_from_numpy(d: dict, device="cpu") -> SceneData:
-    """SceneData from the JAX package's scene fields. Envmaps and textures
-    are not ported, so both must be absent."""
-    if d.get("envmap") is not None or d.get("textures") is not None:
-        raise NotImplementedError("envmaps and textures are not ported yet")
+def atlas_from_numpy(d: dict, device=None) -> TextureAtlas:
+    """TextureAtlas from the JAX package's atlas fields."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(TextureAtlas):
+        v = d[f.name]
+        kw[f.name] = (tuple(v) if isinstance(v, (tuple, list))
+                      else _t(v, device) if isinstance(v, np.ndarray) else v)
+    return TextureAtlas(**kw)
+
+
+def scene_from_numpy(d: dict, device=None) -> SceneData:
+    """SceneData from the JAX package's scene fields, with its texture
+    atlas. Envmaps are not ported, so the scene must have none."""
+    if d.get("envmap") is not None:
+        raise NotImplementedError("envmaps are not ported yet")
+    device = resolve_device(device)
     mats = MaterialBank(**{k: _t(d["materials"][k], device) for k in FIELD_NAMES})
     kw = {}
     for f in dataclasses.fields(SceneData):
@@ -40,7 +55,10 @@ def scene_from_numpy(d: dict, device="cpu") -> SceneData:
             kw[f.name] = float(np.asarray(v))
         else:
             kw[f.name] = _t(v, device)
-    return SceneData(materials=mats, **kw)
+    textures = d.get("textures")
+    if textures is not None:
+        textures = atlas_from_numpy(textures, device)
+    return SceneData(materials=mats, textures=textures, **kw)
 
 
 def bvh4_depth(nodes4: np.ndarray) -> int:
@@ -57,11 +75,14 @@ def bvh4_depth(nodes4: np.ndarray) -> int:
     return depth
 
 
-def bvh_from_numpy(d: dict, device="cpu") -> BVHData:
+def bvh_from_numpy(d: dict, device=None) -> BVHData:
     """BVHData from the JAX package's ``nodes4``, ``leaf_rows``,
-    ``tri_rows`` and, optionally, its meganode table ``nodes``. The BVH4 and
-    meganode depths are measured here when not given; a meganode table of
-    more than MAX_MEGANODE_ROWS rows is dropped, as ``build_bvh`` drops it."""
+    ``tri_rows`` and, optionally, its meganode table ``nodes``, its BVH8
+    ``nodes8l`` + ``leaf_rows8`` and its lane8 tables (``nodes_lane8``,
+    ``leaves_lane8``, ``lane8_depth``, of which only the sizes are kept).
+    The depths are measured here when not given; a meganode table of more
+    than MAX_MEGANODE_ROWS rows is dropped, as ``build_bvh`` drops it."""
+    device = resolve_device(device)
     nodes4 = np.asarray(d["nodes4"], np.float32)
     depth4 = d.get("depth4")
     nodes = d.get("nodes")
@@ -72,6 +93,18 @@ def bvh_from_numpy(d: dict, device="cpu") -> BVHData:
         depth2 = meganode_depth(nodes) if nodes is not None else 0
     if nodes is not None and nodes.shape[0] > MAX_MEGANODE_ROWS:
         nodes = None
+    nodes8l, leaf_rows8, depth8 = d.get("nodes8l"), d.get("leaf_rows8"), 0
+    if nodes8l is not None:
+        nodes8l = np.asarray(nodes8l, np.float32)
+        depth8 = d.get("depth8") or depth8_of(nodes8l)
+        nodes8l = _t(nodes8l, device)
+        leaf_rows8 = _t(np.asarray(leaf_rows8, np.float32), device)
+    lane8 = None
+    if d.get("leaves_lane8") is not None:
+        leaves, row_bytes = np.shape(d["leaves_lane8"])
+        lane8 = Lane8Sizes(nodes=int(np.shape(d["nodes_lane8"])[0]),
+                           leaves=int(leaves), row_bytes=int(row_bytes),
+                           depth=int(d["lane8_depth"]))
     return BVHData(
         nodes4=_t(nodes4, device),
         leaf_rows=_t(np.asarray(d["leaf_rows"], np.float32), device),
@@ -79,6 +112,8 @@ def bvh_from_numpy(d: dict, device="cpu") -> BVHData:
         depth4=int(depth4) if depth4 is not None else bvh4_depth(nodes4),
         nodes=None if nodes is None else _t(nodes, device),
         depth2=int(depth2),
+        nodes8l=nodes8l, leaf_rows8=leaf_rows8, depth8=int(depth8),
+        lane8=lane8,
     )
 
 
@@ -87,10 +122,11 @@ def _gbuffer(d: dict, device) -> GBuffer:
                       for f in dataclasses.fields(GBuffer)})
 
 
-def state_from_numpy(d: dict, device="cpu") -> RenderState:
+def state_from_numpy(d: dict, device=None) -> RenderState:
     """RenderState from the JAX package's state fields (without ReSTIR)."""
     if d.get("restir") is not None:
         raise NotImplementedError("ReSTIR reservoirs are not ported yet")
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(RenderState):
         v = d[f.name]

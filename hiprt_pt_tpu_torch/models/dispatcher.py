@@ -4,9 +4,9 @@
   bsdf_eval(options, mats, n, wo, wi, aux)    -> (f (N,3), pdf (N,))
   bsdf_sample(options, mats, n, wo, rng, aux) -> (rng, wi, f, pdf, sample_aux)
 
-The LAMBERTIAN and OREN_NAYAR overrides are ported. The principled BSDF is
-not ported yet: ROADMAP, "Modules still to port", the ``models/`` principled
-stack with its LUTs.
+The ``bsdf_proxy_*`` functions give RIS its cheap candidate target and
+sampler (models/proxy.py); the Lambertian and Oren-Nayar overrides are cheap
+already and route to their real eval and sampler.
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import torch
 
 from ..core import rng as rng_mod
 from ..core.settings import BSDFOverride, RenderOptions
-from . import lambert, oren_nayar, principled
+from . import lambert, oren_nayar, principled, proxy
+
+_CHEAP = (BSDFOverride.LAMBERTIAN, BSDFOverride.OREN_NAYAR)
 
 
 def _no_refract(n_rays, device):
@@ -44,3 +46,30 @@ def bsdf_sample(options: RenderOptions, mats, n, wo, rng_state, aux=None):
             mats.base_color, mats.oren_nayar_sigma, n, wo, u1, u2)
         return rng_state, wi, f, pdf, _no_refract(n.shape[0], n.device)
     return principled.sample(options, mats, n, wo, rng_state, aux)
+
+
+def bsdf_proxy_ctx(options: RenderOptions, mats, n, wo):
+    """The candidate-invariant proxy context of a batch of vertices, or None
+    for the cheap overrides."""
+    if options.bsdf_override in _CHEAP:
+        return None
+    return proxy.make_ctx(mats, n, wo)
+
+
+def bsdf_proxy_eval_ctx(options: RenderOptions, ctx, mats, n, wo, wi, aux=None):
+    """Candidate target eval: the proxy through its context, or the real
+    eval of a cheap override. Returns (f, pdf)."""
+    if ctx is None:
+        return bsdf_eval(options, mats, n, wo, wi, aux)
+    return proxy.eval_pdf_ctx(ctx, n, wo, wi)
+
+
+def bsdf_proxy_sample_ctx(options: RenderOptions, ctx, mats, n, wo, rng_state,
+                          aux=None):
+    """Candidate direction sampler paired with bsdf_proxy_eval_ctx; its pdf
+    is the exact mixture pdf. Returns (rng, wi, f, pdf)."""
+    if ctx is None:
+        rng_state, wi, f, pdf, _aux = bsdf_sample(options, mats, n, wo,
+                                                  rng_state, aux)
+        return rng_state, wi, f, pdf
+    return proxy.sample_ctx(ctx, n, wo, rng_state)

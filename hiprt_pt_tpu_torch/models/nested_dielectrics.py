@@ -13,7 +13,7 @@ import torch
 EMPTY = -1
 
 
-def empty_stack(n: int, k: int, device="cpu"):
+def empty_stack(n: int, k: int, device):
     """(mat (N,K) i32 = -1, priority (N,K) i32 = -1)."""
     return (
         torch.full((n, k), EMPTY, dtype=torch.int32, device=device),

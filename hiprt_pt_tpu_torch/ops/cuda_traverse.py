@@ -1,21 +1,24 @@
-"""Hopper traversal kernels (csrc/traverse.cu) and their wrappers — the
-counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
+"""Hopper traversal kernels (csrc/traverse.cu, csrc/traverse8.cu) and their
+wrappers — the counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
 
 - ``trace_incoherent``: one thread per ray over the BVH4; replaces the TPU
-  kernel ``_kernel_lane8s`` (K1). Serves bounce rays and shadow rays after
-  the first bounce.
+  kernel ``_kernel_lane8s`` (K1).
 - ``trace_coherent``: a 128-ray packet per block with one shared stack;
-  replaces ``_kernel_compact4`` (K2). Serves camera rays and the first
-  bounce's shadow rays.
+  replaces ``_kernel_compact4`` (K2).
 - ``trace_meganode``: a 128-ray packet per block over the meganode table
-  ``bvh.nodes``; replaces ``_kernel`` / ``traverse_pallas`` (K3). Serves
-  every ray of a scene whose meganode table is kept (at most
-  MAX_MEGANODE_ROWS rows, accel/build.py).
+  ``bvh.nodes``; replaces ``_kernel`` / ``traverse_pallas`` (K3).
+- ``trace_stream8``: 128-ray packets over the BVH8 (``nodes8l`` +
+  ``leaf_rows8``), persistent blocks refilled from a global packet counter;
+  replaces ``_kernel_stream8l`` (K4).
+- ``trace_lane8log``: one persistent thread per ray over the BVH8, refilled
+  from a global ray counter; replaces ``_kernel_lane8log`` (K5).
 
+Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
 CUDA tensors it launches its kernel, or raises: there is no fallback. The
-kernels are compiled with nvcc at first use into ``_build/`` and bound with
-ctypes. ``launch_counts`` counts the launches of each kernel.
+two sources are compiled with nvcc at first use, at the same time, into
+``_build/`` and bound with ctypes. ``launch_counts`` counts the launches of
+each kernel.
 """
 
 from __future__ import annotations
@@ -24,25 +27,37 @@ import ctypes
 import os
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from . import traverse as plain
-from .traverse import (HitRecord, check_meganode_depth, check_stack_depth,
-                       per_ray)
+from .routing import KERNEL_TABLES, TABLE_WIDTHS
+from .traverse import (HitRecord, check_meganode_depth, check_stack8_depth,
+                       check_stack_depth, per_ray)
 from ..utils.native_build import build_shared
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                      "traverse.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+SOURCES = {"traverse": os.path.join(CSRC, "traverse.cu"),
+           "traverse8": os.path.join(CSRC, "traverse8.cu")}
+HEADER = os.path.join(CSRC, "traverse_common.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-launch_counts = {"trace_coherent": 0, "trace_incoherent": 0,
-                 "trace_meganode": 0}
+# kernel -> (source, number of table pointers, scratch counter dtype)
+_KERNELS = {
+    "trace_coherent": ("traverse", 2, None),
+    "trace_incoherent": ("traverse", 2, None),
+    "trace_meganode": ("traverse", 1, None),
+    "trace_stream8": ("traverse8", 2, torch.int32),
+    "trace_lane8log": ("traverse8", 2, torch.int64),
+}
+
+launch_counts = {k: 0 for k in _KERNELS}
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 build_log = ""
 
 
@@ -58,26 +73,29 @@ def _nvcc() -> str:
     return path
 
 
-def load_library():
-    """Build (if needed) and load the kernel library. Raises on failure."""
-    global _lib, build_log
+def load_library() -> dict:
+    """Build (if needed) and load both kernel libraries, compiling the two
+    sources at once. Returns {source name: CDLL}. Raises on failure."""
+    global build_log
     with _lock:
-        if _lib is None:
-            path, build_log = build_shared([_nvcc()] + NVCC_FLAGS, [SOURCE],
-                                           "libtraverse_sm90a.so")
-            lib = ctypes.CDLL(path)
-            argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int]
-                        + [ctypes.c_void_p] * 5)
-            for name in ("hpt_trace_incoherent", "hpt_trace_coherent"):
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
+        if not _libs:
+            nvcc = _nvcc()
+            with ThreadPoolExecutor(len(SOURCES)) as pool:
+                built = dict(zip(SOURCES, pool.map(
+                    lambda name: build_shared(
+                        [nvcc] + NVCC_FLAGS, [SOURCES[name]],
+                        f"lib{name}_sm90a.so", deps=(HEADER,)),
+                    SOURCES)))
+            build_log = "\n".join(log for _path, log in built.values())
+            for name, (path, _log) in built.items():
+                _libs[name] = ctypes.CDLL(path)
+            for kernel, (src, n_tables, counter) in _KERNELS.items():
+                fn = getattr(_libs[src], "hpt_" + kernel)
+                fn.argtypes = ([ctypes.c_void_p] * (n_tables + 5)
+                               + [ctypes.c_int64, ctypes.c_int]
+                               + [ctypes.c_void_p] * (5 + (counter is not None)))
                 fn.restype = ctypes.c_int
-            lib.hpt_trace_meganode.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int]
-                + [ctypes.c_void_p] * 5)
-            lib.hpt_trace_meganode.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        return _libs
 
 
 def _check(name, t, dtype, shape, device):
@@ -91,6 +109,23 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _tables(kernel: str, bvh, dev) -> tuple:
+    """The table pointers of ``kernel``, after checking the tables and that
+    the deepest walk fits the kernel's stack."""
+    if kernel == "trace_meganode":
+        check_meganode_depth(bvh)
+    elif kernel in ("trace_stream8", "trace_lane8log"):
+        check_stack8_depth(bvh)
+    else:
+        check_stack_depth(bvh)
+    ptrs = []
+    for name in KERNEL_TABLES[kernel]:
+        t = getattr(bvh, name)
+        _check(name, t, torch.float32, (t.shape[0], TABLE_WIDTHS[name]), dev)
+        ptrs.append(t.data_ptr())
+    return tuple(ptrs)
+
+
 def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
     dev = o.device
     if dev.type != "cuda":
@@ -98,16 +133,7 @@ def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
     n = o.shape[0]
     _check("o", o, torch.float32, (n, 3), dev)
     _check("d", d, torch.float32, (n, 3), dev)
-    if kernel == "trace_meganode":
-        check_meganode_depth(bvh)
-        _check("nodes", bvh.nodes, torch.float32, (bvh.nodes.shape[0], 128), dev)
-        tables = (bvh.nodes.data_ptr(),)
-    else:
-        check_stack_depth(bvh)
-        _check("nodes4", bvh.nodes4, torch.float32, (bvh.nodes4.shape[0], 32), dev)
-        _check("leaf_rows", bvh.leaf_rows, torch.float32,
-               (bvh.leaf_rows.shape[0], 128), dev)
-        tables = (bvh.nodes4.data_ptr(), bvh.leaf_rows.data_ptr())
+    tables = _tables(kernel, bvh, dev)
     tmin = per_ray(t_min, n, dev)
     tmax = per_ray(t_max, n, dev)
     if active is None:
@@ -117,12 +143,17 @@ def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
-    fn = getattr(load_library(), "hpt_" + kernel)
+    src, _n_tables, counter_dtype = _KERNELS[kernel]
+    scratch = ()
+    if counter_dtype is not None:
+        scratch = (torch.zeros((1,), dtype=counter_dtype, device=dev),)
+    fn = getattr(load_library()[src], "hpt_" + kernel)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*tables,
                  o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                 active.data_ptr(), n, int(any_hit), t.data_ptr(),
+                 active.data_ptr(), n, int(any_hit),
+                 *(c.data_ptr() for c in scratch), t.data_ptr(),
                  prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
@@ -154,3 +185,21 @@ def trace_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
         return plain.traverse_meganode(bvh, o, d, t_min, t_max, active,
                                        any_hit=any_hit)
     return _launch("trace_meganode", bvh, o, d, t_min, t_max, active, any_hit)
+
+
+def trace_stream8(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
+                  any_hit: bool = False) -> HitRecord:
+    """128-ray packet BVH8 walk with a streaming packet refill (K4 port);
+    rays in tile-major order. Needs ``bvh.nodes8l``."""
+    if o.device.type == "cpu":
+        return plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit)
+    return _launch("trace_stream8", bvh, o, d, t_min, t_max, active, any_hit)
+
+
+def trace_lane8log(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
+                   any_hit: bool = False) -> HitRecord:
+    """Per-ray BVH8 walk in persistent threads with a ray-pool refill (K5
+    port). Needs ``bvh.nodes8l``."""
+    if o.device.type == "cpu":
+        return plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit)
+    return _launch("trace_lane8log", bvh, o, d, t_min, t_max, active, any_hit)

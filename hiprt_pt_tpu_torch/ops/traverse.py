@@ -16,7 +16,13 @@ tests goes to the smaller prim id, in the kernels too, so the visit order
 does not pick the winner; a walk that culls the second triangle's box at
 exactly that t still keeps the first (rare: one ray in two million 1080p
 camera rays on the stress interior). It runs on any device; the render
-path sends only CPU tensors to it.
+path sends only CPU tensors to it. Given a ``stats`` dict, each plain walk
+adds its node visits, box tests, leaf visits and triangle tests to it (the
+operation count of a kernel's bound in chip_smoke.py).
+
+``traverse8`` is the same walk over the BVH8 tables ``nodes8l`` +
+``leaf_rows8`` (the plain version of ``trace_stream8`` and
+``trace_lane8log``): eight children per node, pushed far-to-near.
 
 ``traverse_meganode`` is the same per-ray walk over the meganode table
 ``nodes`` (the plain version of ``trace_meganode``): two children per row,
@@ -34,6 +40,7 @@ from ..accel.build import MEGANODE_LEAF_TRIS
 from .intersect import triangle_test
 
 STACK_SIZE = 64
+STACK8 = 96                # BVH8 walks: 7·depth8 + 1 entries, depth8 <= 13
 LEAF_TRIS = 12
 MEGANODE_STACK = 64        # far-sibling entries of a meganode walk
 
@@ -46,7 +53,7 @@ class HitRecord:
     v: torch.Tensor     # (N,) f32
 
 
-def empty_hit_record(n: int, device="cpu") -> HitRecord:
+def empty_hit_record(n: int, device) -> HitRecord:
     """All-miss record."""
     return HitRecord(
         t=torch.full((n,), float("inf"), dtype=torch.float32, device=device),
@@ -59,6 +66,8 @@ def empty_hit_record(n: int, device="cpu") -> HitRecord:
 def check_stack_depth(bvh) -> None:
     """A walk holds at most 3 siblings per level plus the 4 children of the
     deepest node: 3·depth4 + 1 entries must fit the stack."""
+    if bvh.leaf_rows is None:
+        raise ValueError("this BVH has no BVH4 leaf table (leaf_rows is None)")
     need = 3 * int(bvh.depth4) + 1
     if need > STACK_SIZE:
         raise ValueError(
@@ -81,8 +90,8 @@ def inverse_direction(d: torch.Tensor) -> torch.Tensor:
 
 
 def slab_test(boxes, o, inv, best_t):
-    """boxes (k, 4, 6) [min xyz, max xyz], rays (k, 3), best_t (k,).
-    Returns (hit (k, 4), t_entry (k, 4)); an empty (NaN) slot never hits."""
+    """boxes (k, C, 6) [min xyz, max xyz], rays (k, 3), best_t (k,).
+    Returns (hit (k, C), t_entry (k, C)); an empty (NaN) slot never hits."""
     t0 = (boxes[..., 0:3] - o[:, None, :]) * inv[:, None, :]
     t1 = (boxes[..., 3:6] - o[:, None, :]) * inv[:, None, :]
     tsm = torch.minimum(t0, t1)
@@ -95,10 +104,17 @@ def slab_test(boxes, o, inv, best_t):
     return hit, t_entry
 
 
-def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
-             any_hit: bool = False) -> HitRecord:
-    """Closest-hit (or any-hit) traversal for N rays, plain PyTorch."""
-    check_stack_depth(bvh)
+def _count(stats, key, n):
+    """Add n (an int, or a tensor read only here) to stats[key]."""
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + int(n)
+
+
+def _walk(children, leaf_rows, stack_size, o, d, t_min, t_max, active,
+          any_hit, stats):
+    """The per-ray stack walk shared by the BVH4 and BVH8 plain versions.
+    ``children(r)`` gives the child boxes (k, C, 6) and refs (k, C) of node
+    rows r; a ref >= 0 is a node row, a ref < 0 leaf row -(ref+1)."""
     n = o.shape[0]
     dev = o.device
     rec = empty_hit_record(n, dev)
@@ -109,12 +125,9 @@ def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
     best_t = per_ray(t_max, n, dev).clone()
     act = (torch.ones((n,), dtype=torch.bool, device=dev) if active is None
            else active.to(torch.bool))
+    leaf_prims = leaf_rows[:, 108:120].contiguous().view(torch.int32)
 
-    boxes4 = bvh.nodes4[:, :24].reshape(-1, 4, 6)
-    refs4 = bvh.nodes4[:, 24:28].contiguous().view(torch.int32)
-    leaf_prims = bvh.leaf_rows[:, 108:120].contiguous().view(torch.int32)
-
-    stack = torch.zeros((n, STACK_SIZE), dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, stack_size), dtype=torch.int32, device=dev)
     sp = act.to(torch.int64)  # every live stack starts as [root]
     alive = torch.nonzero(sp > 0).squeeze(1)
     while alive.numel():
@@ -124,13 +137,15 @@ def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
 
         ni = alive[is_node]
         if ni.numel():
-            r = ref[is_node].long()
-            hit, t_entry = slab_test(boxes4[r], o[ni], inv[ni], best_t[ni])
+            boxes, refs = children(ref[is_node].long())
+            _count(stats, "node_visits", ni.numel())
+            _count(stats, "box_tests", boxes.shape[0] * boxes.shape[1])
+            hit, t_entry = slab_test(boxes, o[ni], inv[ni], best_t[ni])
             # push hit children far-to-near so the nearest is popped first
             key = torch.where(hit, t_entry, torch.full_like(t_entry, -1.0))
             key, order = torch.sort(key, dim=1, descending=True)
-            child = refs4[r].gather(1, order)
-            for j in range(4):
+            child = refs.gather(1, order)
+            for j in range(refs.shape[1]):
                 m = key[:, j] >= 0.0
                 rows = ni[m]
                 stack[rows, sp[rows]] = child[m, j]
@@ -139,7 +154,9 @@ def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
         li = alive[~is_node]
         if li.numel():
             leaf = -(ref[~is_node].long() + 1)
-            rows = bvh.leaf_rows[leaf]
+            rows = leaf_rows[leaf]
+            _count(stats, "leaf_visits", li.numel())
+            _count(stats, "tri_tests", rows[:, 121].sum())
             tri = rows[:, :108].reshape(-1, LEAF_TRIS, 9)
             ol, dl = o[li], d[li]
             ok, t, u, v = triangle_test(
@@ -177,6 +194,54 @@ def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
     return rec
 
 
+def traverse(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
+             any_hit: bool = False, stats: dict | None = None) -> HitRecord:
+    """Closest-hit (or any-hit) traversal for N rays over ``nodes4`` +
+    ``leaf_rows``, plain PyTorch. With ``stats`` given, adds the walk's
+    node visits, box tests, leaf visits and triangle tests to it."""
+    check_stack_depth(bvh)
+    boxes4 = bvh.nodes4[:, :24].reshape(-1, 4, 6)
+    refs4 = bvh.nodes4[:, 24:28].contiguous().view(torch.int32)
+    return _walk(lambda r: (boxes4[r], refs4[r]), bvh.leaf_rows, STACK_SIZE,
+                 o, d, t_min, t_max, active, any_hit, stats)
+
+
+def check_stack8_depth(bvh) -> None:
+    """A BVH8 walk holds at most 7 siblings per level plus the 8 children
+    of the deepest node: 7·depth8 + 1 entries must fit the stack."""
+    if bvh.nodes8l is None or bvh.leaf_rows8 is None:
+        raise ValueError("this BVH has no BVH8 tables (nodes8l is None)")
+    need = 7 * int(bvh.depth8) + 1
+    if need > STACK8:
+        raise ValueError(
+            f"BVH8 depth {bvh.depth8} needs a {need}-entry traversal stack; "
+            f"the BVH8 walks hold {STACK8}")
+
+
+def bvh8_children(nodes8l: torch.Tensor):
+    """(boxes (M8, 8, 6), refs (M8, 8) i32) of every nodes8l row: child c
+    is node row base_int + c below n_int, else leaf row
+    base_leaf + (c - n_int), as ref -(row + 1). An empty slot's box is NaN."""
+    words = nodes8l[:, 48:50].contiguous().view(torch.int32)
+    base_int = words[:, 0:1] & ((1 << 26) - 1)
+    n_int = words[:, 0:1] >> 26
+    c = torch.arange(8, dtype=torch.int32, device=nodes8l.device)[None, :]
+    refs = torch.where(c < n_int, base_int + c, -(words[:, 1:2] + c - n_int) - 1)
+    return nodes8l[:, :48].reshape(-1, 8, 6), refs
+
+
+def traverse8(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
+              any_hit: bool = False, stats: dict | None = None) -> HitRecord:
+    """Closest-hit (or any-hit) walk over the BVH8 ``nodes8l`` +
+    ``leaf_rows8``, plain PyTorch: the plain version of ``trace_stream8``
+    and ``trace_lane8log``. Hit children are pushed far-to-near, leaves are
+    intersected exactly, with the tie rule of ``traverse``."""
+    check_stack8_depth(bvh)
+    boxes8, refs8 = bvh8_children(bvh.nodes8l)
+    return _walk(lambda r: (boxes8[r], refs8[r]), bvh.leaf_rows8, STACK8,
+                 o, d, t_min, t_max, active, any_hit, stats)
+
+
 def check_meganode_depth(bvh) -> None:
     """A meganode walk holds at most one far sibling per row on its path
     plus the near child just pushed: depth2 entries must fit the stack."""
@@ -189,7 +254,7 @@ def check_meganode_depth(bvh) -> None:
 
 
 def traverse_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
-                      any_hit: bool = False) -> HitRecord:
+                      any_hit: bool = False, stats: dict | None = None) -> HitRecord:
     """Closest-hit (or any-hit) walk over the meganode table ``bvh.nodes``,
     plain PyTorch: the plain version of ``trace_meganode``. Every iteration
     pops one row per live ray, slab-tests its two child boxes, intersects
@@ -225,12 +290,15 @@ def traverse_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
         ref, cnt = m[:, 0::2], m[:, 1::2]  # (k, 2) per child slot
         hit, t_entry = slab_test(boxes[row], o[alive], inv[alive], best_t[alive])
         hit = hit & (cnt >= 0)
+        _count(stats, "node_visits", row.numel())
+        _count(stats, "box_tests", 2 * row.numel())
 
         # leaf children: the embedded triangles of each child the ray hits
         tri_ok = (hit & (cnt > 0))[:, :, None] & (slot < cnt[:, :, None])
         tri_ok = tri_ok.reshape(-1, 2 * MEGANODE_LEAF_TRIS)
         leafy = tri_ok.any(dim=1)
         found = torch.zeros_like(leafy)
+        _count(stats, "tri_tests", tri_ok.sum())
         if leafy.any():
             li = alive[leafy]
             r = row[leafy]

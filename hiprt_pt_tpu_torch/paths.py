@@ -1,0 +1,91 @@
+"""The three paths that chip_smoke.py drives and profile_frame.py profiles:
+each path's scene, camera, BVH and render options, at the 16:9 aspect of a
+1920x1080 frame.
+
+- ``stress``: the procedural stress interior (259,120 triangles, 120
+  emitters), Lambertian override, MIS NEE; camera rays and the first
+  bounce's shadow rays go through trace_coherent, the others through
+  trace_incoherent.
+- ``cornell``: the procedural Cornell box with seven principled spheres
+  (assets/cornell.py, 35,852 triangles), the full principled BSDF with
+  dispersion and thin film, MIS NEE; every ray goes through trace_meganode.
+- ``stress14``: bench.py's headline configuration at 8x the triangles: the
+  stress interior at tri_scale=14 (2,042,048 triangles, 120 emitters, 18
+  textures), the full principled BSDF, RIS; trace_stream8 and
+  trace_lane8log.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .core.device import resolve_device
+
+PATHS = ("stress", "cornell", "stress14")
+# the kernels that serve each path's (coherent, incoherent) rays
+ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
+          "cornell": ("trace_meganode", "trace_meganode"),
+          "stress14": ("trace_stream8", "trace_lane8log")}
+ASPECT = 16 / 9
+
+
+def load(path: str, device=None):
+    """(scene, camera, bvh, seconds) of a path on ``device`` (default: the
+    GPU); ``seconds`` holds the host set-up times, {"scene": building the
+    scene, "bvh": building the BVH and moving its tables to the device}."""
+    from .accel.build import build_bvh
+    from .assets.cornell import cornell_spheres_arrays
+    from .assets.scene import build_scene
+    from .assets.stress import load_stress_scene
+    from .core.camera import camera_from_lookat
+    from .core.material import MaterialBank
+
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; the paths are {PATHS}")
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    if path == "cornell":
+        v, f, m, rows, cam_kw = cornell_spheres_arrays(ASPECT)
+        scene = build_scene(v, f, m, MaterialBank.from_rows(rows), device=device)
+        cam = camera_from_lookat(**cam_kw, device=device)
+    else:
+        scene, cam = load_stress_scene(
+            aspect=ASPECT, seed=7, tri_scale=1.0 if path == "stress" else 14.0,
+            num_emitters=120, with_textures=path == "stress14", device=device)
+        v, f = scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy()
+    t1 = time.perf_counter()
+    bvh = build_bvh(v, f, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    return scene, cam, bvh, {"scene": t1 - t0, "bvh": t2 - t1}
+
+
+def slice_options(path: str):
+    """(RenderOptions, RenderSettings, WorldSettings) of a path. The stress
+    path: Lambertian override, no dispersion, MIS NEE. The Cornell path: the
+    defaults, i.e. the full principled BSDF with dispersion and thin film,
+    MIS NEE. The 2.04M-triangle path: bench.py's make_renderer, i.e. the
+    defaults with RIS (4 light + 1 BSDF candidate, proxy target, 128-ray
+    light tiles). All with 4 bounces, one sample per frame and ambient
+    NONE."""
+    from .core.settings import (AmbientLightType, BSDFOverride,
+                                LightSamplingStrategy, RenderOptions,
+                                RenderSettings, WorldSettings)
+
+    opts = RenderOptions(direct_light_sampling=LightSamplingStrategy.MIS,
+                         max_bounces_static=4)
+    if path == "stress":
+        opts = opts.replace(bsdf_override=BSDFOverride.LAMBERTIAN,
+                            do_dispersion=False)
+    else:
+        assert opts.bsdf_override == BSDFOverride.NONE
+        assert opts.do_dispersion and opts.do_thin_film
+    if path == "stress14":
+        opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RIS_BSDF_LIGHT)
+        assert opts.ris_proxy_target and opts.ris_tile_light_candidates == 128
+    settings = RenderSettings(nb_bounces=4, samples_per_frame=1)
+    world = WorldSettings(ambient_light_type=int(AmbientLightType.NONE))
+    return opts, settings, world

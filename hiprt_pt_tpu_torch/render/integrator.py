@@ -8,23 +8,26 @@
   miss → ambient, NaN guard.
 
 The whole image is one wavefront of N rays in the tile-major pixel order.
-Traversal routes in the JAX package's order (``_make_tracers``), in one
-function, ``_tracer``: a scene whose meganode table is kept (at most
-MAX_MEGANODE_ROWS rows) sends every ray to ``trace_meganode``; otherwise
-camera rays and the first bounce's shadow rays go through the packet kernel
-``trace_coherent`` and every other ray through ``trace_incoherent``. On CPU
-tensors each runs its plain PyTorch walk. The RNG draws happen in the JAX
-package's order: the camera pass draws jx, jy; each bounce draws u_lam (with
-``do_dispersion``), u_alpha, then the NEE draws, then the BSDF sample's draws
-(the override's pair, or the principled BSDF's u_sel, u1, u2, u3), then
-u_rr. The host syncs once per bounce, to skip bounces with no live ray.
+Traversal routes in the JAX package's order (``_make_tracers``) through
+``ops/routing.py``: camera rays and the first bounce's shadow rays are
+coherent, every other ray incoherent, and the scene's tables pick the kernel
+(trace_meganode for a kept meganode table; trace_coherent / trace_incoherent
+over the BVH4; trace_stream8 / trace_lane8log over the BVH8 past the BVH4
+and lane8s gates). On CPU tensors each runs its plain PyTorch walk.
+
+Direct light is MIS NEE or RIS (lights/ris.py); textures modulate the
+materials at every vertex and normal maps the shading normals. The RNG draws
+happen in the JAX package's order: the camera pass draws jx, jy; each bounce
+draws u_lam (with ``do_dispersion``), u_alpha, then the NEE or RIS draws,
+then the BSDF sample's draws (the override's pair, or the principled BSDF's
+u_sel, u1, u2, u3), then u_rr. The host syncs once per bounce, to skip
+bounces with no live ray.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..accel.build import MAX_MEGANODE_ROWS
 from ..core import rng as rng_mod
 from ..core.camera import generate_camera_rays
 from ..core.settings import (
@@ -41,29 +44,33 @@ from ..lights.light_sampling import (
     emissive_pdf_of_direction,
     sample_emissive_triangle,
 )
+from ..lights.ris import ris_direct_lighting
 from ..models import nested_dielectrics as nd
 from ..models.dispatcher import bsdf_eval, bsdf_sample
 from ..models.dispersion import (ior_at_wavelength, sample_wavelength,
                                  wavelength_rgb_weight)
-from ..ops.cuda_traverse import trace_coherent, trace_incoherent, trace_meganode
 from ..ops.intersect import offset_ray_origin
 from ..ops.pixel_order import pixel_coords
+from ..ops.routing import tracer as _tracer
 from ..ops.sampling import balance_heuristic
+from ..ops.texture import apply_normal_map, apply_textures
 from ..ops.tonemap import luminance
 
 
 def check_supported(options: RenderOptions, scene) -> None:
     """Raise for the options and scene features the port does not carry yet
     (each names its ROADMAP item)."""
-    if options.direct_light_sampling in (LightSamplingStrategy.RIS_BSDF_LIGHT,
-                                         LightSamplingStrategy.RESTIR_DI):
+    if options.direct_light_sampling == LightSamplingStrategy.RESTIR_DI:
         raise NotImplementedError(
-            "RIS and ReSTIR DI are not ported yet (ROADMAP: lights/ris.py, "
-            "restir/); use direct_light_sampling=MIS")
-    if scene.textures is not None or scene.envmap is not None:
+            "ReSTIR DI is not ported yet (ROADMAP: restir/); use "
+            "direct_light_sampling=MIS or RIS_BSDF_LIGHT")
+    if scene.envmap is not None:
         raise NotImplementedError(
-            "textures and envmaps are not ported yet (ROADMAP: ops/texture.py, "
-            "assets/envmap.py)")
+            "envmaps are not ported yet (ROADMAP: assets/envmap.py)")
+    if scene.textures is not None and scene.textures.has_alpha:
+        raise NotImplementedError(
+            "alpha textures need the alpha-aware shadow march, which is not "
+            "ported yet (ROADMAP: ops/traverse.py occluded_alpha)")
     if options.interior_stack_strategy != InteriorStackStrategy.WITH_PRIORITIES:
         raise NotImplementedError(
             "only the WITH_PRIORITIES interior stack is ported (ROADMAP: "
@@ -74,24 +81,16 @@ def check_supported(options: RenderOptions, scene) -> None:
             "options, white-furnace mode)")
 
 
-def _tracer(bvh, coherent: bool):
-    """The traversal kernel for a batch of rays. As the JAX package's
-    ``_make_tracers`` does, a kept meganode table takes every ray (K3 port);
-    otherwise ``coherent`` rays (screen-tile packets) take the packet
-    kernel and the rest the per-ray kernel."""
-    if bvh.nodes is not None and bvh.nodes.shape[0] <= MAX_MEGANODE_ROWS:
-        return trace_meganode
-    return trace_coherent if coherent else trace_incoherent
-
-
 def _nee_enabled(options: RenderOptions) -> bool:
     return options.direct_light_sampling in (LightSamplingStrategy.UNIFORM_ONE,
-                                             LightSamplingStrategy.MIS)
+                                             LightSamplingStrategy.MIS,
+                                             LightSamplingStrategy.RIS_BSDF_LIGHT)
 
 
 def _interpolate_hit(scene, prim, u, v, ray_d):
     """Shading attributes of a batch of hits from the packed tri_data rows:
-    (shading normal, geometric normal oriented to it, uv, material id)."""
+    (shading normal, geometric normal oriented to it, uv, material id,
+    tangent)."""
     row = scene.tri_data[prim.clamp_min(0).long()]  # (N, 32)
     w = 1.0 - u - v
     nx = row[:, 0] * w + row[:, 3] * u + row[:, 6] * v
@@ -106,7 +105,16 @@ def _interpolate_hit(scene, prim, u, v, ray_d):
         [row[:, 9] * w + row[:, 11] * u + row[:, 13] * v,
          row[:, 10] * w + row[:, 12] * u + row[:, 14] * v], dim=-1)
     mat_id = row[:, 24].contiguous().view(torch.int32)
-    return ns, ng, uv, mat_id
+    return ns, ng, uv, mat_id, row[:, 28:31]
+
+
+def _normal_mapped(scene, mat_id, uv, ns, tangent):
+    """The shading normal perturbed by the material's normal map, if any."""
+    if scene.textures is None:
+        return ns
+    nm_idx = scene.materials.fields_at(
+        mat_id.clamp_min(0), ("normal_map_texture_index",))["normal_map_texture_index"]
+    return apply_normal_map(scene.textures, nm_idx, uv, ns, tangent)
 
 
 def _face_forward(n, d_in):
@@ -145,7 +153,8 @@ def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
 
     rec = _tracer(bvh, coherent=True)(bvh, o, d, t_min=0.0, active=active)
     hit = rec.prim >= 0
-    ns, ng, uv, mat_id = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
+    ns, ng, uv, mat_id, tangent = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
+    ns = _normal_mapped(scene, mat_id, uv, ns, tangent)
     pos = o + d * torch.where(torch.isfinite(rec.t), rec.t, 0.0)[..., None]
     backface = (ns * d).sum(dim=-1) > 0.0
     gbuf = GBuffer(
@@ -167,8 +176,11 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
                      settings: RenderSettings, mats, p, ns, ng, wo,
                      rng_state, active, eta_rel=None,
                      shadow_coherent: bool = False):
-    """NEE at one path vertex: power-sampled emissive triangles, MIS-weighted
-    against the BSDF. Returns (rng_state, radiance (N,3), shadow-ray count
+    """Direct light at one path vertex, ``number_of_light_samples`` times
+    averaged: RIS over light and BSDF candidates (lights/ris.py), or NEE of
+    power-sampled emissive triangles, MIS-weighted against the BSDF.
+    ``shadow_coherent``: the shadow rays are screen-tile coherent (the
+    camera vertex). Returns (rng_state, radiance (N,3), shadow-ray count
     (() int64 tensor))."""
     contrib = torch.zeros_like(p)
     n_shadow = torch.zeros((), dtype=torch.int64, device=p.device)
@@ -176,6 +188,15 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
         return rng_state, contrib, n_shadow
     n_ls = max(int(settings.number_of_light_samples), 1)
     inv_ls = 1.0 / n_ls
+    if options.direct_light_sampling == LightSamplingStrategy.RIS_BSDF_LIGHT:
+        for _ in range(n_ls):
+            rng_state, c, rays = ris_direct_lighting(
+                options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
+                active, eta_rel, shadow_coherent=shadow_coherent)
+            c = _clamp_contribution(c, settings.direct_contribution_clamp)
+            contrib = contrib + c * inv_ls
+            n_shadow = n_shadow + rays
+        return rng_state, contrib, n_shadow
     occluded = _tracer(bvh, coherent=shadow_coherent)
     for _ in range(n_ls):
         rng_state, ls = sample_emissive_triangle(scene, p, rng_state)
@@ -234,6 +255,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     ng = gbuffer.geometric_normal
     wo = gbuffer.view_direction
     mat_id = gbuffer.material_id.clamp_min(0)
+    uv = gbuffer.uv
     stack_mat, stack_pri = nd.empty_stack(
         n_rays, options.nested_dielectrics_stack_size, dev)
     entering = ~gbuffer.backface
@@ -246,6 +268,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         if not bool(active.any()):
             break
         mats = mats_all.at_indices(mat_id).make_safe()
+        if scene.textures is not None:
+            mats = apply_textures(scene.textures, mats, uv)
 
         # --- dispersion: a hero wavelength is drawn on first contact with a
         # dispersive dielectric; its RGB weight enters the throughput once
@@ -354,8 +378,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         rec = _tracer(bvh, coherent=False)(bvh, o_next, wi, t_min=0.0,
                                            active=valid_sample)
         hit = rec.prim >= 0
-        ns2, ng2, _uv2, mat_id2 = _interpolate_hit(scene, rec.prim, rec.u,
-                                                   rec.v, wi)
+        ns2, ng2, uv2, mat_id2, tan2 = _interpolate_hit(scene, rec.prim, rec.u,
+                                                        rec.v, wi)
         t_b = rec.t
 
         # Beer-Lambert absorption along the segment inside a medium
@@ -389,6 +413,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         radiance = radiance + torch.where((valid_sample & ~hit)[..., None], env_c, 0.0)
 
         # --- next vertex ---
+        ns2 = _normal_mapped(scene, mat_id2, uv2, ns2, tan2)
         p2 = o_next + wi * torch.where(torch.isfinite(t_b), t_b, 0.0)[..., None]
         next_active = valid_sample & hit
         na = next_active[..., None]
@@ -400,6 +425,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         ng = torch.where(na, _face_forward(ng2, wi), ng)
         wo = torch.where(na, -wi, wo)
         mat_id = torch.where(next_active, mat_id2, mat_id)
+        uv = torch.where(na, uv2, uv)
         entering = torch.where(next_active, entering2, entering)
         active = next_active
 

@@ -17,14 +17,15 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 
 
 def build_shared(compiler_cmd: list, sources: list, lib_name: str,
-                 timeout: float = 600.0) -> tuple[str, str]:
-    """Compile ``sources`` into ``_build/<lib_name>`` unless an up-to-date
-    copy is there. ``compiler_cmd`` is the command without the sources and
-    the ``-o`` output. Returns (library path, compiler output; empty when
-    the library was already built)."""
+                 timeout: float = 600.0, deps: tuple = ()) -> tuple[str, str]:
+    """Compile ``sources`` into ``_build/<lib_name>`` unless a copy newer
+    than the sources and ``deps`` (included headers) is there.
+    ``compiler_cmd`` is the command without the sources and the ``-o``
+    output. Returns (library path, compiler output; empty when the library
+    was already built)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, lib_name)
-    newest_src = max(os.path.getmtime(s) for s in sources)
+    newest_src = max(os.path.getmtime(s) for s in list(sources) + list(deps))
     if os.path.exists(lib) and os.path.getmtime(lib) >= newest_src:
         return lib, ""
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

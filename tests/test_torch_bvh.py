@@ -23,7 +23,8 @@ from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest  # noqa: E402
 @pytest.fixture(scope="module")
 def scenes():
     jscene, jcam, jbvh = tp.jax_stress(aspect=1.0)
-    tbvh = build_bvh(np.asarray(jscene.vertices), np.asarray(jscene.triangles))
+    tbvh = build_bvh(np.asarray(jscene.vertices), np.asarray(jscene.triangles),
+                     "cpu", all_tables=True)
     return jscene, jcam, jbvh, tbvh
 
 
@@ -170,9 +171,9 @@ def test_wrappers_run_the_plain_version_on_cpu(scenes):
         rec = fn(tbvh, _t(o), _t(d), t_min=0.0)
         assert np.array_equal(rec.prim.numpy(), ref.prim.numpy())
         assert np.array_equal(rec.t.numpy(), ref.t.numpy())
-    assert cuda_traverse.launch_counts == {"trace_coherent": 0,
-                                           "trace_incoherent": 0,
-                                           "trace_meganode": 0}
+    assert cuda_traverse.launch_counts == {
+        k: 0 for k in ("trace_coherent", "trace_incoherent", "trace_meganode",
+                       "trace_stream8", "trace_lane8log")}
 
 
 def test_single_leaf_scene():
@@ -181,7 +182,7 @@ def test_single_leaf_scene():
     rng = np.random.default_rng(4)
     verts = (rng.normal(size=(15, 3)) * 0.5).astype(np.float32)
     tris = np.arange(15, dtype=np.int32).reshape(5, 3)
-    bvh = build_bvh(verts, tris)
+    bvh = build_bvh(verts, tris, "cpu", all_tables=True)
     assert bvh.nodes4.shape[0] == 1
     o = rng.uniform(-3, 3, (256, 3)).astype(np.float32)
     d = (-o / np.linalg.norm(o, axis=-1, keepdims=True)).astype(np.float32)

@@ -48,8 +48,10 @@ def cornell():
     jstate = render_step(opts, W, H, (jsc, jb), init_render_state(W, H, 42), jc,
                          settings, world)
     return dict(jscene=jsc, jcam=jc, jstate=jstate,
-                tscene=build_scene(v, f, m, MaterialBank.from_rows(rows)),
-                tcam=camera_from_lookat(**cam), tbvh=build_bvh(v, f))
+                tscene=build_scene(v, f, m, MaterialBank.from_rows(rows),
+                                   device="cpu"),
+                tcam=camera_from_lookat(**cam, device="cpu"),
+                tbvh=build_bvh(v, f, "cpu"))
 
 
 def _port_config():
@@ -100,7 +102,7 @@ def test_cornell_render_step_matches_jax(cornell, monkeypatch):
 
     opts, settings, world = _port_config()
     state = render_step(opts, W, H, cornell["tscene"], cornell["tbvh"],
-                        init_render_state(W, H, 42), cornell["tcam"], settings,
+                        init_render_state(W, H, 42, "cpu"), cornell["tcam"], settings,
                         world)
     assert False in calls and True in calls
     jstate = cornell["jstate"]
@@ -125,7 +127,7 @@ def test_cornell_dispersion_changes_the_image(cornell):
     imgs = []
     for o in (opts, opts.replace(do_dispersion=False)):
         s = render_step(o, 32, 16, cornell["tscene"], cornell["tbvh"],
-                        init_render_state(32, 16, 7), cornell["tcam"],
+                        init_render_state(32, 16, 7, "cpu"), cornell["tcam"],
                         settings, world)
         imgs.append(s.accum.numpy())
     assert all(np.isfinite(i).all() for i in imgs)

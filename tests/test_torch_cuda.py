@@ -31,7 +31,9 @@ def gpu_scene():
     dev = torch.device("cuda:0")
     scene, cam = load_stress_scene(aspect=2.0, tri_scale=0.01,
                                    with_textures=False, device=dev)
-    bvh = build_bvh(scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy(), dev)
+    # every table: the BVH8 kernels are tested here beside the routed ones
+    bvh = build_bvh(scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy(),
+                    dev, all_tables=True)
     return scene, cam, bvh, dev
 
 
@@ -63,6 +65,37 @@ def test_kernel_matches_plain(gpu_scene, kernel, any_hit):
     pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
     act = active.cpu().numpy()
     assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    if any_hit:
+        assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
+    else:
+        assert np.mean(pk == pp) >= 0.9999
+        m = (pk == pp) & (pk >= 0)
+        np.testing.assert_allclose(rk.t.cpu().numpy()[m], rp.t.cpu().numpy()[m],
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["trace_stream8", "trace_lane8log"])
+def test_bvh8_kernel_matches_plain(gpu_scene, kernel, any_hit, coherent):
+    """trace_stream8 (K4 port) and trace_lane8log (K5 port) against
+    traverse8 on incoherent rays and on camera rays in tile order."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    _, cam, bvh, dev = gpu_scene
+    o, d, t_max, active = _rays(dev)
+    if coherent:
+        o, d = (torch.from_numpy(x).to(dev) for x in tp.camera_rays_np_torch(cam, 128, 128))
+    before = ct.launch_counts[kernel]
+    rk = getattr(ct, kernel)(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert ct.launch_counts[kernel] == before + 1
+    rp = plain.traverse8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
+    act = active.cpu().numpy()
+    assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    assert (pk >= 0).mean() > 0.2
     if any_hit:
         assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
     else:

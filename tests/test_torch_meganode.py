@@ -38,7 +38,8 @@ def cornell():
     from hiprt_pt_tpu.core.camera import camera_from_lookat
 
     v, f, _m, _rows, cam = tp.cornell_spheres_arrays(1.0)
-    return v, f, camera_from_lookat(**cam), jbuild(v, f), build_bvh(v, f)
+    return (v, f, camera_from_lookat(**cam), jbuild(v, f),
+            build_bvh(v, f, "cpu", all_tables=True))
 
 
 def _t(x):
@@ -90,7 +91,8 @@ def test_nodes_table_equals_jax(cornell):
 def test_interop_carries_the_meganode_table(cornell):
     _v, _f, _c, jbvh, tbvh = cornell
     keys = ("nodes4", "leaf_rows", "tri_rows", "nodes")
-    got = interop.bvh_from_numpy({k: np.asarray(getattr(jbvh, k)) for k in keys})
+    got = interop.bvh_from_numpy({k: np.asarray(getattr(jbvh, k)) for k in keys},
+                                 "cpu")
     assert np.array_equal(got.nodes.numpy().view(np.int32),
                           tbvh.nodes.numpy().view(np.int32))
     assert got.depth2 == tbvh.depth2
@@ -98,8 +100,8 @@ def test_interop_carries_the_meganode_table(cornell):
     big = np.zeros((MAX_MEGANODE_ROWS + 1, 128), np.float32)
     big[:, 12:16] = np.asarray([0, 1, 0, 1], np.int32).view(np.float32)
     d = {k: np.asarray(getattr(jbvh, k)) for k in keys[:3]}
-    assert interop.bvh_from_numpy(dict(d, nodes=big)).nodes is None
-    assert interop.bvh_from_numpy(d).nodes is None
+    assert interop.bvh_from_numpy(dict(d, nodes=big), "cpu").nodes is None
+    assert interop.bvh_from_numpy(d, "cpu").nodes is None
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -170,7 +172,7 @@ def test_single_leaf_row_with_an_empty_slot():
     rng = np.random.default_rng(4)
     verts = (rng.normal(size=(12, 3)) * 0.5 + 1.0).astype(np.float32)
     tris = np.arange(12, dtype=np.int32).reshape(4, 3)
-    bvh = build_bvh(verts, tris)
+    bvh = build_bvh(verts, tris, "cpu", all_tables=True)
     meta = bvh.nodes.numpy()[:, 12:16].copy().view(np.int32)
     assert bvh.nodes.shape[0] == 1 and bvh.depth2 == 1
     assert meta.tolist() == [[0, 4, 0, -1]]
@@ -199,8 +201,9 @@ def test_route_picks_the_meganode_kernel_only_for_a_kept_table(cornell):
         assert _tracer(b, True) is cuda_traverse.trace_coherent
         assert _tracer(b, False) is cuda_traverse.trace_incoherent
     # the stress interior's meganode table is past the cap and is not kept
-    scene, _cam = load_stress_scene(tri_scale=tp.TRI_SCALE, with_textures=False)
-    sbvh = build_bvh(scene.vertices.numpy(), scene.triangles.numpy())
+    scene, _cam = load_stress_scene(tri_scale=tp.TRI_SCALE, with_textures=False,
+                                    device="cpu")
+    sbvh = build_bvh(scene.vertices.numpy(), scene.triangles.numpy(), "cpu")
     assert sbvh.nodes is None and sbvh.depth2 > 0
     assert _tracer(sbvh, True) is cuda_traverse.trace_coherent
     assert _tracer(sbvh, False) is cuda_traverse.trace_incoherent
@@ -248,7 +251,7 @@ def test_tiny_negative_direction_components_hit():
     slab on that axis: the ray missed every box not around its origin. The
     port's guard gives -1e12; every walk hits what brute force hits."""
     verts, tris, o, d = _floor_rays()
-    bvh = build_bvh(verts, tris)
+    bvh = build_bvh(verts, tris, "cpu", all_tables=True)
     bt, bp, _, _ = brute_force_closest(_t(verts), _t(tris), _t(o), _t(d), t_min=0.0)
     assert np.all(bp.numpy() >= 0) and np.allclose(bt.numpy(), 1.0)
     inv = plain.inverse_direction(_t(d)).numpy()

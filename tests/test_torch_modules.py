@@ -161,7 +161,8 @@ def small_scenes():
             {"emission": [0.3, 0.4, 1.0], "emission_strength": 5.0}]
     uvs = rng.random((verts.shape[0], 2), dtype=np.float32)
     js = jbuild(verts, tris, mat_ids, JBank.from_rows(rows), uvs=uvs)
-    tsc = tbuild(verts, tris, mat_ids, TBank.from_rows(rows), uvs=uvs)
+    tsc = tbuild(verts, tris, mat_ids, TBank.from_rows(rows), uvs=uvs,
+                 device="cpu")
     return js, tsc
 
 
@@ -222,7 +223,7 @@ def test_camera_rays_and_offset_match_jax():
     from hiprt_pt_tpu_torch.ops.intersect import offset_ray_origin as toff
 
     args = dict(eye=(-8.8, 2.2, 0.0), target=(10.0, 1.6, 0.0), vfov_deg=55.0, aspect=2.0)
-    jc, tc = jcam_of(**args), tcam_of(**args)
+    jc, tc = jcam_of(**args), tcam_of(**args, device="cpu")
     w, h = 64, 32
     jit = _rng(14).random((w * h, 2), dtype=np.float32)
     oj, dj = jgen(jc, w, h, jnp.asarray(jit))

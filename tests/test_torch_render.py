@@ -72,7 +72,7 @@ def _assert_tree_equal(got, ref, path=""):
 
 def test_interop_scene_roundtrip(both):
     ref = tp.to_numpy_dict(both["jscene"])
-    got = interop.to_numpy(interop.scene_from_numpy(ref))
+    got = interop.to_numpy(interop.scene_from_numpy(ref, "cpu"))
     for k, v in got.items():
         if k == "materials":
             _assert_tree_equal(v, ref["materials"], k)
@@ -93,7 +93,7 @@ def test_interop_bvh_roundtrip(both):
 
 def test_interop_state_roundtrip(both):
     ref = tp.to_numpy_dict(both["jstate"])
-    state = interop.state_from_numpy(ref)
+    state = interop.state_from_numpy(ref, "cpu")
     assert state.sample_count == 1 and state.seed == 42
     got = interop.to_numpy(state)
     for k, v in got.items():
@@ -112,7 +112,7 @@ def port_stress():
     from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
 
     return load_stress_scene(aspect=W / H, tri_scale=tp.TRI_SCALE,
-                             with_textures=False)
+                             with_textures=False, device="cpu")
 
 
 @pytest.mark.parametrize("group", [
@@ -158,7 +158,7 @@ def test_camera_rays_pass_gbuffer(both):
     jr, jg, ja = jpass(both["jscene"], both["jbvh"], both["jcam"], jset,
                        jinit(W, H, 42), W, H, 3, jr, jopts)
     tr, tg, ta = tpass(both["tscene"], both["tbvh"], both["tcam"], tset,
-                       tinit(W, H, 42), W, H, 3, tr, topts)
+                       tinit(W, H, 42, "cpu"), W, H, 3, tr, topts)
     assert np.array_equal(np.asarray(jr).astype(np.int64), tr.numpy())
     assert np.array_equal(np.asarray(ja), ta.numpy())
     jp, tpi = np.asarray(jg.prim_index), tg.prim_index.numpy()
@@ -177,7 +177,7 @@ def test_render_step_matches_jax(both):
 
     opts, settings, world = _port_config()
     state = render_step(opts, W, H, both["tscene"], both["tbvh"],
-                        init_render_state(W, H, 42), both["tcam"], settings, world)
+                        init_render_state(W, H, 42, "cpu"), both["tcam"], settings, world)
     ref = np.asarray(both["jstate"].accum)
     got = state.accum.numpy()
     assert np.isfinite(got).all()
@@ -206,7 +206,7 @@ def test_second_sample_from_jax_state_with_runtime_settings(both):
                         adaptive_sampling_noise_threshold=jnp.float32(0.5))
     import jax
 
-    state = interop.state_from_numpy(tp.to_numpy_dict(both["jstate"]))
+    state = interop.state_from_numpy(tp.to_numpy_dict(both["jstate"]), "cpu")
     # the JAX step donates its state argument: hand it a copy
     ref = jstep(jopts, W, H, (both["jscene"], both["jbvh"]),
                 jax.tree.map(jnp.copy, both["jstate"]), both["jcam"], jset, jworld)
@@ -257,14 +257,22 @@ def test_unsupported_features_raise(both):
     from hiprt_pt_tpu_torch.render.renderer import render_step
 
     opts, settings, world = _port_config()
-    for bad in (opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RIS_BSDF_LIGHT),
+    for bad in (opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RESTIR_DI),
                 opts.replace(white_furnace_mode=True),
                 opts.replace(interior_stack_strategy=ts.InteriorStackStrategy.AUTOMATIC)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_step(bad, 16, 8, both["tscene"], both["tbvh"],
-                        init_render_state(16, 8), both["tcam"], settings, world)
+                        init_render_state(16, 8, device="cpu"), both["tcam"], settings, world)
+    # textures are ported; alpha textures need the alpha-aware shadow march
+    scene, _cam = load_stress_scene(tri_scale=0.01, with_textures=True,
+                                  device="cpu")
+    assert scene.textures is not None and not scene.textures.has_alpha
+    alpha = dataclasses.replace(
+        scene, textures=dataclasses.replace(scene.textures, has_alpha=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_stress_scene(tri_scale=0.01, with_textures=True)
+        render_step(opts, 16, 8, alpha, both["tbvh"],
+                    init_render_state(16, 8, device="cpu"),
+                    both["tcam"], settings, world)
 
 
 def test_port_imports_no_jax():
@@ -297,9 +305,36 @@ def test_render_state_replace_is_not_in_place(both):
     from hiprt_pt_tpu_torch.render.renderer import render_step
 
     opts, settings, world = _port_config()
-    s0 = init_render_state(16, 8)
+    s0 = init_render_state(16, 8, device="cpu")
     s1 = render_step(opts, 16, 8, both["tscene"], both["tbvh"], s0,
                      both["tcam"], settings.replace(nb_bounces=1), world)
     assert s0.sample_count == 0 and float(s0.accum.abs().sum()) == 0.0
     assert s1.sample_count == 1 and int(s1.rays_traced) > 0
     assert dataclasses.is_dataclass(s1)
+
+
+def test_entry_points_default_to_the_gpu(monkeypatch):
+    """An entry point given no device runs on the GPU, and without one it
+    raises: the CPU runs only when the caller asks for it."""
+    from hiprt_pt_tpu_torch import interop
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
+    from hiprt_pt_tpu_torch.core.camera import camera_from_lookat
+    from hiprt_pt_tpu_torch.core.device import resolve_device
+    from hiprt_pt_tpu_torch.core.state import init_render_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: load_stress_scene(tri_scale=0.01),
+        lambda: build_bvh(np.eye(3, dtype=np.float32), np.asarray([[0, 1, 2]])),
+        lambda: camera_from_lookat((0, 0, 1), (0, 0, 0)),
+        lambda: init_render_state(16, 8),
+        lambda: interop.state_from_numpy({}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device() == torch.device("cuda", 0)
