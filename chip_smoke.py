@@ -5,33 +5,51 @@
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
-  2. build    — compile the five traversal kernels (nvcc, both sources at
-                once) and the BVH builder (g++).
+  2. build    — compile every CUDA source of the port at once (nvcc, one per
+                source: the five traversal kernels and the two probes) and
+                the BVH builder (g++).
   Then, for each of the three paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
                 which must be the path's routes (paths.ROUTES).
   4. kernels  — each kernel of the path against its plain PyTorch version
-                on the card, in closest- and any-hit form, on 65,536 camera
-                or bounce rays and on the full 1920x1080 wavefront, both
-                with finite t_max and inactive rays; 1,024 rays also against
-                brute force; then the kernel's and the plain version's time
-                on the 1920x1080 wavefront.
+                on the card, on each ray kind: camera rays, cosine bounce
+                rays from the camera hits, and shadow rays from the camera
+                hits toward a point on an emissive triangle drawn as the
+                path draws it (per ray under MIS, a triangle per 128-ray
+                tile under RIS), t_max at the light. Closest and any-hit
+                (shadow rays: any-hit) on 65,536 rays and on the full
+                1920x1080 wavefront, with finite t_max and inactive rays;
+                1,024 camera or bounce rays also against brute force; then
+                the kernel's and the plain version's time and the kernel's
+                bound on each (kernel, ray kind) at 1080p.
   5. slice    — the renderer at 1920x1080, 4 bounces, with the path's
                 options (paths.slice_options): one warm-up frame and 4
                 timed frames. Launch counts are reset just before and read
-                just after; the path's kernels, and no other, must launch.
+                just after; the path's kernels, and no other, must launch,
+                as many times per frame and ray kind as render/integrator.py
+                issues them.
   6. parity   — one sample at 256x128 rendered on the GPU and on the CPU
                 (plain traversal), compared per pixel.
   The paths: the stress interior (259,120 triangles; trace_coherent,
   trace_incoherent), the Cornell box with seven principled spheres (35,852
   triangles; trace_meganode) and the stress interior at tri_scale=14
   (2,042,048 triangles, textures, RIS; trace_stream8, trace_lane8log).
-The line before the last is the kernels' JSON summary (each kernel's time on
-the 1080p rays it serves on its path, its plain version's, and its bound:
-the larger of the f32 operations of the plain walk on those rays at
-67 TFLOP/s and the bytes of rays, hit records and tables at 3.35 TB/s); the
-last line is the run's JSON result. Imports nothing of JAX.
+  7. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
+                r5probe2.py), a path with no frame: its entry point main()
+                at the TPU probe's shapes with the launch counts reset just
+                before and read just after; each probe kernel against its
+                plain version on seeded gate inputs at all seven probe
+                configurations (exactly equal) and on the probe's own
+                inputs (the constant); kernel, plain and library times and
+                the bounds at the probe shapes.
+The lines before the last hold one row per (kernel, ray kind) and the
+kernels' JSON summary (each kernel's time on the 1080p rays it serves on
+its path, or on its probe's reference configuration, its plain version's,
+a library call's where one computes the same, and its bound: for a
+traversal kernel the larger of the f32 operations of the plain walk on
+those rays at 67 TFLOP/s and the bytes of rays, hit records and tables at
+3.35 TB/s); the last line is the run's JSON result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +61,8 @@ import time
 
 import numpy as np
 import torch
+
+from hiprt_pt_tpu_torch.core.device import cuda_ms
 
 WIDTH, HEIGHT = 1920, 1080
 PARITY_RAYS = 65536
@@ -61,21 +81,30 @@ KERNELS = {
     "trace_meganode": "hiprt_pt_tpu/ops/pallas_traverse.py:55",
     "trace_stream8": "hiprt_pt_tpu/ops/pallas_traverse.py:724",
     "trace_lane8log": "hiprt_pt_tpu/ops/pallas_traverse.py:1331",
+    "mm_probe_kernel": "benchmarks/r5probe2.py:58",
+    "dg_probe_kernel": "benchmarks/r5probe2.py:112",
 }
 SOURCE = {k: "hiprt_pt_tpu_torch/csrc/traverse.cu" for k in KERNELS} | {
     "trace_stream8": "hiprt_pt_tpu_torch/csrc/traverse8.cu",
-    "trace_lane8log": "hiprt_pt_tpu_torch/csrc/traverse8.cu"}
-# the plain PyTorch version of each kernel (ops/traverse.py)
+    "trace_lane8log": "hiprt_pt_tpu_torch/csrc/traverse8.cu",
+    "mm_probe_kernel": "hiprt_pt_tpu_torch/csrc/probes.cu",
+    "dg_probe_kernel": "hiprt_pt_tpu_torch/csrc/probes.cu"}
+# the plain PyTorch version of each traversal kernel (ops/traverse.py)
 PLAIN = {"trace_coherent": "traverse", "trace_incoherent": "traverse",
          "trace_meganode": "traverse_meganode", "trace_stream8": "traverse8",
          "trace_lane8log": "traverse8"}
-# the rays each kernel is held against and timed on: camera rays of the
-# 1920x1080 wavefront, or cosine bounce rays from their hits
-STRESS_CASES = (("trace_coherent", "camera"), ("trace_incoherent", "bounce"))
-CORNELL_CASES = (("trace_meganode", "camera"), ("trace_meganode", "bounce"))
+# the (kernel, ray kind) pairs each path holds against the plain version,
+# times and bounds: every kind the path sends each kernel, and on the
+# 2.04M-triangle path the kinds it does not (K4 on bounce rays, K5 on
+# camera rays) for comparison
+STRESS_CASES = (("trace_coherent", "camera"), ("trace_coherent", "shadow"),
+                ("trace_incoherent", "bounce"), ("trace_incoherent", "shadow"))
+CORNELL_CASES = tuple(("trace_meganode", kind)
+                      for kind in ("camera", "bounce", "shadow"))
 STRESS14_CASES = tuple((k, kind) for k in ("trace_stream8", "trace_lane8log")
-                       for kind in ("camera", "bounce"))
-# the rays of its path each kernel's ms and bound are reported on
+                       for kind in ("camera", "bounce", "shadow"))
+# the rays of its path whose ms and bound a kernel's entry in the kernels
+# line reports
 SERVES = {"trace_coherent": "camera", "trace_incoherent": "bounce",
           "trace_meganode": "camera", "trace_stream8": "camera",
           "trace_lane8log": "bounce"}
@@ -91,6 +120,17 @@ RAY_BYTES, HIT_BYTES = 33, 16
 # products (18), four 3-term dots (20), the edge vector (3), u and v and t
 # scaled (3), the reciprocal (1), 7 compares and the u + v sum (8)
 SLAB_OPS, TRI_OPS = 25, 53
+# the slice's frames that launch counts cover: a warm-up and 4 timed
+SLICE_FRAMES = 5
+# probes: the rounds of P2's exact gate on integer tables (every partial
+# sum stays below 2^24: 4 rounds x 19 tiles x 128 lanes x 1000 < 2^24; P1's
+# gate runs the probe's 32 rounds, 127 x 4096 x 32 < 2^24); the float
+# table's tolerance, for an f32 sum of up to 77,824 maxima taken in another
+# order than float64
+DG_GATE_ROUNDS = 4
+PROBE_FLOAT_RTOL = 1e-5
+# the probe configurations the kernels line reports P1 and P2 at
+P1_LINE, P2_LINE_TILES = "per-group(now)", 19
 
 
 def log(*a):
@@ -112,17 +152,18 @@ def phase_device() -> str:
 
 def phase_build():
     from hiprt_pt_tpu_torch.accel.native import get_lib
-    from hiprt_pt_tpu_torch.ops import cuda_traverse
+    from hiprt_pt_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_traverse.load_library()
+    cuda_build.load_libraries()
     t1 = time.perf_counter()
     get_lib()
     t2 = time.perf_counter()
-    for line in cuda_traverse.build_log.splitlines():
+    for line in cuda_build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("[build] ptxas:", line.strip())
-    log(f"[build] kernels {t1 - t0:.2f} s, bvh builder {t2 - t1:.2f} s")
+    log(f"[build] kernels ({len(cuda_build.SOURCES)} sources at once) "
+        f"{t1 - t0:.2f} s, bvh builder {t2 - t1:.2f} s")
 
 
 def phase_scene(tag, dev):
@@ -167,26 +208,78 @@ def camera_rays(cam, width, height):
     return generate_camera_rays(cam, width, height, None, px, py)
 
 
-def bounce_rays(scene, bvh, o, d, seed, walk):
-    """Incoherent rays: origins at the camera hits (found by the plain walk
-    ``walk``), cosine-hemisphere directions (numpy, seeded) around the
-    face-forwarded geometric normal. Rays whose camera ray missed are
-    inactive."""
-    from hiprt_pt_tpu_torch.ops.intersect import offset_ray_origin
-    from hiprt_pt_tpu_torch.ops.sampling import sample_cosine_hemisphere
-
+def camera_hits(scene, bvh, o, d, walk):
+    """(points, face-forwarded geometric normals, hit mask) of camera rays,
+    found by the plain walk ``walk``; a missed ray's point is its origin."""
     rec = walk(bvh, o, d, t_min=0.0)
     hit = rec.prim >= 0
     ng = scene.tri_data[rec.prim.clamp_min(0).long(), 25:28]
     ng = torch.where(((ng * d).sum(-1, keepdim=True) > 0.0), -ng, ng)
     p = o + d * torch.where(hit, rec.t, 0.0)[:, None]
+    return p, ng, hit
+
+
+def bounce_rays(p, ng, seed):
+    """Incoherent rays: cosine-hemisphere directions (numpy, seeded) around
+    the normals ng at the points p."""
+    from hiprt_pt_tpu_torch.ops.intersect import offset_ray_origin
+    from hiprt_pt_tpu_torch.ops.sampling import sample_cosine_hemisphere
+
     rng = np.random.default_rng(seed)
-    n = o.shape[0]
-    u1 = torch.from_numpy(rng.random(n, dtype=np.float32)).to(o.device)
-    u2 = torch.from_numpy(rng.random(n, dtype=np.float32)).to(o.device)
+    n = p.shape[0]
+    u1 = torch.from_numpy(rng.random(n, dtype=np.float32)).to(p.device)
+    u2 = torch.from_numpy(rng.random(n, dtype=np.float32)).to(p.device)
     wi, _ = sample_cosine_hemisphere(ng, u1, u2)
     wi = (wi / torch.linalg.norm(wi, dim=-1, keepdim=True)).contiguous()
-    return offset_ray_origin(p, ng, wi).contiguous(), wi, hit
+    return offset_ray_origin(p, ng, wi).contiguous(), wi
+
+
+def shadow_rays(scene, p, ng, seed, tile):
+    """Any-hit rays from the points p toward a point on an emissive
+    triangle drawn as the path's light sampling draws it
+    (lights/light_sampling.py:sample_emissive_triangle, the scene's power
+    alias table, the PCG stream of seed ``seed``): a triangle per ray under
+    MIS (``tile`` None), one per 128-ray tile under RIS (the point on it
+    per ray). t_max stops short of the light, as the path's does.
+    Returns (o, d, t_max, valid): valid where the light is drawn and lies
+    above the surface."""
+    from hiprt_pt_tpu_torch.core import rng
+    from hiprt_pt_tpu_torch.lights.light_sampling import sample_emissive_triangle
+    from hiprt_pt_tpu_torch.ops.intersect import offset_ray_origin
+
+    n = p.shape[0]
+    state = rng.seed(torch.arange(n, device=p.device), 0, seed)
+    _state, ls = sample_emissive_triangle(scene, p, state, tile_size=tile)
+    wi = ls["wi"].contiguous()
+    valid = ls["valid"] & ((ng * wi).sum(-1) > 0.0)
+    return (offset_ray_origin(p, ng, wi).contiguous(), wi,
+            (ls["dist"] * (1.0 - 1e-3)).contiguous(), valid)
+
+
+def shadow_tile(tag):
+    """The light-candidate tile of a path's shadow rays: 128 rays under RIS
+    (RenderOptions.ris_tile_light_candidates), None (per ray) under MIS."""
+    from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
+    from hiprt_pt_tpu_torch.paths import slice_options
+
+    opts = slice_options(tag)[0]
+    if opts.direct_light_sampling == LightSamplingStrategy.RIS_BSDF_LIGHT:
+        return opts.ris_tile_light_candidates or None
+    return None
+
+
+def kind_rays(scene, bvh, cam, width, height, walk, seed, tile):
+    """{kind: (o, d, t_max or None, active)} of the camera, bounce and
+    shadow rays of a width x height view; t_max None: unbounded (camera and
+    bounce rays), or the caller's; active: the camera ray hit (bounce and
+    shadow rays) and the light is valid (shadow rays)."""
+    o_c, d_c = camera_rays(cam, width, height)
+    p, ng, hit = camera_hits(scene, bvh, o_c, d_c, walk)
+    o_b, d_b = bounce_rays(p, ng, seed)
+    o_s, d_s, tmax_s, valid = shadow_rays(scene, p, ng, seed + 1, tile)
+    return {"camera": (o_c, d_c, None, torch.ones_like(hit)),
+            "bounce": (o_b, d_b, None, hit),
+            "shadow": (o_s, d_s, tmax_s, hit & valid)}
 
 
 def compare(name, rk, rp, any_hit, active):
@@ -218,21 +311,6 @@ def compare(name, rk, rp, any_hit, active):
     return err
 
 
-def cuda_ms(fn, reps):
-    """Mean ms of ``reps`` back-to-back calls after a warm-up call, between
-    CUDA events; also returns the warm-up call's result."""
-    out = fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
 def bound(bvh, kernel, n, stats):
     """(ms, "bytes" or "operations"): the least time the card could take for
     the plain walk's work on n rays (see F32_OPS_PER_S above)."""
@@ -255,37 +333,48 @@ def limits(n, seed, dev):
     return torch.from_numpy(tmax).to(dev), torch.from_numpy(act).to(dev)
 
 
-def phase_kernels(scene, cam, bvh, dev, cases):
+def modes(kind):
+    """The hit modes a ray kind is held in (any_hit flags): shadow rays
+    are any-hit rays; camera and bounce rays both."""
+    return (True,) if kind == "shadow" else (False, True)
+
+
+def phase_kernels(tag, scene, cam, bvh, dev, cases):
     """Each (kernel, ray kind) of ``cases`` against the kernel's plain
-    version and brute force, then both timed on the 1080p wavefront.
-    Returns ({kernel: max |dt|}, {(kernel, kind, any_hit): (ms, plain ms)},
-    {kernel: (bound ms, bound_by)} on the rays it serves)."""
+    version and brute force, then both timed on the 1080p wavefront, with
+    the kernel's bound there. Returns ({kernel: max |dt|}, {(kernel, kind):
+    row}); a row holds the kernel's and the plain version's ms in the
+    kind's mode (closest for camera and bounce rays, any-hit for shadow
+    rays), the any-hit ms, and the bound on those rays in that mode."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.ops import traverse as plain
     from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest
 
     first_walk = getattr(plain, PLAIN[cases[0][0]])
+    tile = shadow_tile(tag)
     side = int(np.sqrt(PARITY_RAYS))
-    o_c, d_c = camera_rays(cam, side, side)
-    o_i, d_i, hit_c = bounce_rays(scene, bvh, o_c, d_c, 1, first_walk)
-    tmax, act = limits(o_c.shape[0], 2, dev)
-    rays = {"camera": (o_c, d_c, act), "bounce": (o_i, d_i, act & hit_c)}
+    rays = kind_rays(scene, bvh, cam, side, side, first_walk, 1, tile)
+    tmax, act = limits(side * side, 2, dev)
     errs = {}
     plain_recs = {}
     for kname, kind in cases:
         kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
-        o, d, a = rays[kind]
+        o, d, t_own, a = rays[kind]
+        a = a & act
+        t_max = tmax if t_own is None else torch.minimum(t_own, tmax)
         errs.setdefault(kname, 0.0)
-        for any_hit in (False, True):
+        for any_hit in modes(kind):
             t_min = 1e-4 if any_hit else 0.0
-            rk = kern(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
+            rk = kern(bvh, o, d, t_min, t_max, a, any_hit=any_hit)
             key = (PLAIN[kname], kind, any_hit)
             if key not in plain_recs:
-                plain_recs[key] = walk(bvh, o, d, t_min, tmax, a, any_hit=any_hit)
+                plain_recs[key] = walk(bvh, o, d, t_min, t_max, a, any_hit=any_hit)
             torch.cuda.synchronize()
-            tag = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
+            tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
             errs[kname] = max(errs[kname],
-                              compare(tag, rk, plain_recs[key], any_hit, a))
+                              compare(tag_, rk, plain_recs[key], any_hit, a))
+        if kind == "shadow":
+            continue
         # brute force on 1,024 active rays with an unbounded t_max
         sel = torch.nonzero(a & torch.isinf(tmax)).squeeze(1)[:BRUTE_RAYS]
         rk = kern(bvh, o[sel].contiguous(), d[sel].contiguous(), 0.0)
@@ -294,64 +383,101 @@ def phase_kernels(scene, cam, bvh, dev, cases):
         rb = plain.HitRecord(t=bt, prim=bp, u=_bu, v=_bv)
         compare(f"{kname}[{kind}, brute force]", rk, rb, False,
                 torch.ones_like(sel, dtype=torch.bool))
-    del plain_recs
+    del plain_recs, rays
 
     # the full 1080p wavefront: compare with finite t_max and inactive rays,
     # then time, and compare the timed results too
-    o_f, d_f = camera_rays(cam, WIDTH, HEIGHT)
-    o_b, d_b, hit_f = bounce_rays(scene, bvh, o_f, d_f, 3, first_walk)
-    tmax_f, act_f = limits(o_f.shape[0], 4, dev)
-    full = {"camera": (o_f, d_f, torch.ones_like(hit_f)),
-            "bounce": (o_b, d_b, hit_f)}
+    full = kind_rays(scene, bvh, cam, WIDTH, HEIGHT, first_walk, 3, tile)
+    tmax_f, act_f = limits(WIDTH * HEIGHT, 4, dev)
     plain_recs = {}
     for kname, kind in cases:
         kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
-        o, d, a = full[kind]
+        o, d, t_own, a = full[kind]
         a = a & act_f
-        for any_hit in (False, True):
+        t_max = tmax_f if t_own is None else torch.minimum(t_own, tmax_f)
+        for any_hit in modes(kind):
             t_min = 1e-4 if any_hit else 0.0
-            rk = kern(bvh, o, d, t_min, tmax_f, a, any_hit=any_hit)
+            rk = kern(bvh, o, d, t_min, t_max, a, any_hit=any_hit)
             key = (PLAIN[kname], kind, any_hit)
             if key not in plain_recs:
-                plain_recs[key] = walk(bvh, o, d, t_min, tmax_f, a, any_hit=any_hit)
-            tag = (f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p, "
-                   f"finite t_max]")
+                plain_recs[key] = walk(bvh, o, d, t_min, t_max, a, any_hit=any_hit)
+            tag_ = (f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p, "
+                    f"finite t_max]")
             errs[kname] = max(errs[kname],
-                              compare(tag, rk, plain_recs[key], any_hit, a))
+                              compare(tag_, rk, plain_recs[key], any_hit, a))
     del plain_recs
-    times, plain_ms, bounds = {}, {}, {}
+    rows, plain_ms = {}, {}
     for kname, kind in cases:
         kern, walk = getattr(ct, kname), getattr(plain, PLAIN[kname])
-        o, d, a = full[kind]
-        for any_hit in (False, True):
+        o, d, t_own, a = full[kind]
+        t_max = float("inf") if t_own is None else t_own
+        row = {}
+        for any_hit in modes(kind):
             t_min = 1e-4 if any_hit else 0.0
-            k_ms, rk = cuda_ms(lambda: kern(bvh, o, d, t_min, float("inf"), a,
+            k_ms, rk = cuda_ms(lambda: kern(bvh, o, d, t_min, t_max, a,
                                             any_hit=any_hit), reps=5)
             key = (PLAIN[kname], kind, any_hit)
             if key not in plain_ms:
                 plain_ms[key] = cuda_ms(lambda: walk(
-                    bvh, o, d, t_min, float("inf"), a, any_hit=any_hit), reps=1)
+                    bvh, o, d, t_min, t_max, a, any_hit=any_hit), reps=1)
             p_ms, rp = plain_ms[key]
-            tag = f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p]"
-            errs[kname] = max(errs[kname], compare(tag, rk, rp, any_hit, a))
-            times[(kname, kind, any_hit)] = (k_ms, p_ms)
+            tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p]"
+            errs[kname] = max(errs[kname], compare(tag_, rk, rp, any_hit, a))
+            mode = "any" if any_hit else "closest"
+            row[f"{mode}_ms"], row[f"{mode}_plain_ms"] = k_ms, p_ms
             log(f"[kernels] {kname} {'any-hit' if any_hit else 'closest'} on "
-                f"{o.shape[0]} {kind} rays: kernel {k_ms:.3f} ms, plain "
-                f"{p_ms:.3f} ms ({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
-        if kind == SERVES[kname]:
-            stats = {}
-            getattr(plain, PLAIN[kname])(bvh, o, d, 0.0, float("inf"), a,
-                                         stats=stats)
-            bounds[kname] = bound(bvh, kname, o.shape[0], stats)
-            log(f"[kernels] {kname} bound on {o.shape[0]} {kind} rays: "
-                f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]}); plain walk "
-                f"{stats}")
-    return errs, times, bounds
+                f"{o.shape[0]} {kind} rays ({int(a.sum())} active): kernel "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms "
+                f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
+        mode = "any" if kind == "shadow" else "closest"
+        stats = {}
+        walk(bvh, o, d, 1e-4 if kind == "shadow" else 0.0, t_max, a,
+             any_hit=kind == "shadow", stats=stats)
+        b_ms, b_by = bound(bvh, kname, o.shape[0], stats)
+        rows[(kname, kind)] = {
+            "path": tag, "mode": mode, "ms": row[f"{mode}_ms"],
+            "plain_ms": row[f"{mode}_plain_ms"], "any_ms": row["any_ms"],
+            "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[kernels] {kname} bound on {o.shape[0]} {kind} rays ({mode}): "
+            f"{b_ms:.4f} ms ({b_by}); plain walk {stats}")
+    return errs, rows
+
+
+def launches_per_frame(tag, scene):
+    """{(kernel, ray kind): launches per frame} of a path's slice, as
+    render/integrator.py issues them when every bounce has a live ray:
+    camera_rays_pass traces the camera rays once (coherent route); each of
+    the nb_bounces bounces of render_sample traces number_of_light_samples
+    shadow wavefronts (_direct_lighting: one any-hit trace per light
+    sample under MIS; under RIS, lights/ris.py, one visibility trace per
+    light sample when the visibility target is off and the BSDF
+    candidates take the dense emissive sweep), on the coherent route at the
+    first bounce and the incoherent one after, and one bounce wavefront
+    (incoherent route)."""
+    from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
+    from hiprt_pt_tpu_torch.lights.ris import DENSE_EMISSIVE_MAX
+    from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
+
+    opts, settings, _world = slice_options(tag)
+    if opts.direct_light_sampling == LightSamplingStrategy.RIS_BSDF_LIGHT and (
+            opts.ris_use_visibility_target
+            or not 0 < scene.emissive_rows.shape[0] <= DENSE_EMISSIVE_MAX):
+        raise AssertionError(f"{tag}: RIS traces more rays than this count has")
+    coherent, incoherent = ROUTES[tag]
+    bounces = min(opts.max_bounces_static, int(settings.nb_bounces))
+    n_ls = max(int(settings.number_of_light_samples), 1)
+    out = {}
+    for key, n in (((coherent, "camera"), 1), ((coherent, "shadow"), n_ls),
+                   ((incoherent, "shadow"), (bounces - 1) * n_ls),
+                   ((incoherent, "bounce"), bounces)):
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 def phase_slice(tag, scene, cam, bvh, kernels):
     """One warm-up frame and 4 timed frames at 1920x1080. Every kernel of
-    ``kernels`` must be launched in them, and no other."""
+    ``kernels`` must be launched in them, and no other, as many times as
+    launches_per_frame says."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
@@ -364,7 +490,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     r.step()  # warm-up frame
     torch.cuda.synchronize()
     rays0 = r.rays_traced
-    frames = 4
+    frames = SLICE_FRAMES - 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -379,23 +505,29 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     rays = r.rays_traced - rays0
     img = r.hdr_image()
     nonblack = float(np.mean(img.sum(-1) > 0.0))
+    per_kind = launches_per_frame(tag, scene)
     log(f"[{tag} slice] {WIDTH}x{HEIGHT}, 4 bounces, {frames} timed frames: "
         f"{ms:.1f} ms ({ms / frames:.2f} ms/frame; {wall * 1e3:.1f} ms host "
         f"clock), {rays} rays, {rays / ms / 1e3:.3f} Mrays/s, "
         f"{frames / ms * 1e3:.3f} spp/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{launches}; image mean "
+        f"{launches}; per frame by ray kind {per_kind}; image mean "
         f"{float(img.mean()):.6f}, non-black {nonblack:.4f}")
     for k, v in launches.items():
         if (v > 0) != (k in kernels):
             raise AssertionError(
                 f"{k} was launched {v} times by the {tag} path, which should "
                 f"launch exactly {sorted(kernels)}")
+        want = SLICE_FRAMES * sum(n for (kk, _), n in per_kind.items() if kk == k)
+        if v != want:
+            raise AssertionError(f"{k} was launched {v} times in {SLICE_FRAMES} "
+                                 f"frames of the {tag} path; its ray kinds "
+                                 f"{per_kind} make {want}")
     if not np.isfinite(img).all():
         raise AssertionError(f"{tag} slice image is not finite")
     if nonblack <= 0.5:
         raise AssertionError(f"{tag} slice image is only {nonblack:.3f} non-black")
-    return launches
+    return launches, per_kind
 
 
 def phase_parity(tag, scene, cam, bvh):
@@ -426,29 +558,223 @@ def phase_parity(tag, scene, cam, bvh):
         raise AssertionError(f"{tag}: GPU render disagrees with the CPU render")
 
 
+def probe_bound(cfg):
+    """(ms, "bytes" or "operations") of a probe configuration on the H100
+    SXM, from the work of the function the probe returns: the larger of its
+    maxima, one operation each at the 67 T/s rate outside the tensor cores,
+    and the table, indices and output once at 3.35 TB/s. P1's function,
+    sum_r sum_j max_w tab[(idx[r % 8, j] + r) mod L, w], takes W NL rounds
+    maxima (its one-hot product's 2 L W NL rounds operations are the
+    probe's method, not the function's work: the row's "eff" reads the
+    product against the tensor cores' peak); P2's takes S tiles 128 rounds."""
+    if cfg["probe"] == "P1":
+        op_ms = cfg["W"] * cfg["NL"] * cfg["rounds"] / F32_OPS_PER_S * 1e3
+        size = torch.empty((), dtype=getattr(torch, cfg["dtype"])).element_size()
+        nbytes = cfg["L"] * cfg["W"] * size + 8 * cfg["NL"] * 4 + 4
+    else:
+        op_ms = cfg["S"] * cfg["tiles"] * 128 * cfg["rounds"] / F32_OPS_PER_S * 1e3
+        nbytes = cfg["S"] * cfg["tiles"] * 128 * 4 + cfg["S"] * 128 * 4 + 4
+    byte_ms = nbytes / BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms > byte_ms else "bytes")
+
+
+def mm_library_ms(table, idx, rounds):
+    """The yardstick of P1: the one-hot product alone, rounds x (W x Lpad) .
+    (Lpad x NL), through torch._int_mm (int8) or torch.matmul (bf16); no
+    max, no sum. The one-hot operand is column-major, the layout cuBLAS
+    takes on its fast path. (ms, None) or (None, the reason it was
+    refused)."""
+    tab = table.tab
+    L, W = tab.shape
+    l_pad, NL = table.tab_t.shape[1], idx.shape[1]
+    a = table.tab_t[:W]
+    hots = []
+    for r in range(rounds):
+        oh = torch.zeros((NL, l_pad), dtype=tab.dtype, device=tab.device)
+        oh[torch.arange(NL, device=tab.device),
+           torch.remainder(idx[r % 8].long() + r, L)] = 1
+        hots.append(oh.t())
+    mm = torch._int_mm if tab.dtype == torch.int8 else torch.matmul
+
+    def run():
+        for oh in hots:
+            mm(a, oh)
+    try:
+        return cuda_ms(run, reps=3)[0], None
+    except RuntimeError as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def dg_library_ms(tab, idx, rounds):
+    """The yardstick of P2: rounds x tiles torch.gather of one (S, 128)
+    tile."""
+    S, tiles = tab.shape[0], tab.shape[1] // 128
+    rows = [torch.remainder(idx.long() + r, S) for r in range(rounds)]
+    cols = [tab[:, c * 128:(c + 1) * 128] for c in range(tiles)]
+
+    def run():
+        for rr in rows:
+            for cc in cols:
+                torch.gather(cc, 0, rr)
+    return cuda_ms(run, reps=3)[0]
+
+
+def phase_probes(dev):
+    """The probe entry point (probes/r5probe2.py:main) at the TPU probe's
+    shapes with the launch counts reset just before and read just after;
+    each kernel against its plain version on gate inputs (exactly equal),
+    and on the probe's own inputs (the constant); plain and library times
+    and the bounds. Returns ({kernel: launches}, {kernel: max |err|}, the
+    configurations' rows)."""
+    from hiprt_pt_tpu_torch.probes import r5probe2 as pr
+
+    where = pr.card()
+    pr.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = pr.main(dev)
+    launches = dict(pr.launch_counts)
+    log(f"[probes] main() at the probe's shapes: {time.perf_counter() - t0:.1f} s, "
+        f"launches {launches}")
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"{k} was not launched by the probe entry point")
+    # the probe's own inputs give the constant
+    for res in results:
+        if res["probe"] == "P1":
+            want = 127 * res["NL"] * res["rounds"]
+        elif res["probe"] == "P2":
+            want = res["tiles"] * 128 * res["rounds"]
+        else:
+            want = 16 * res["N"] * res["C"]
+        # Q3's library sum of 16.0s is exact in practice, not by contract
+        if res["probe"] == "Q3" and abs(res["value"] - want) <= 1e-6 * want:
+            continue
+        if res["value"] != want:
+            raise AssertionError(f"probe {res}: value {res['value']}, the "
+                                 f"probe's inputs give {want}")
+    log("[probes] every configuration gives the constant of the probe's own "
+        "inputs")
+    # the gate: seeded inputs whose answer is not constant, full widths;
+    # errs: the largest |kernel - plain| of each kernel's gates
+    errs = {"mm_probe_kernel": 0.0, "dg_probe_kernel": 0.0}
+    for i, (label, L, W, NL, dtype, groups) in enumerate(pr.MM_CONFIGS):
+        tab, idx = pr.mm_gate_inputs(L, W, NL, dtype, seed=10 + i, device=dev)
+        got = float(pr.mm_probe_kernel(pr.mm_table(tab), idx, pr.ROUNDS, groups))
+        want = float(pr.mm_probe_plain(tab, idx, pr.ROUNDS, groups))
+        errs["mm_probe_kernel"] = max(errs["mm_probe_kernel"], abs(got - want))
+        log(f"[probes] mm_probe_kernel {label} gate (L={L} W={W} NL={NL} "
+            f"{dtype} g={groups}, {pr.ROUNDS} rounds): kernel {got}, plain {want}")
+        if got != want:
+            raise AssertionError(f"mm_probe_kernel {label}: {got} != {want}")
+    for i, (S, tiles) in enumerate(pr.DG_CONFIGS):
+        for per_lane in (True, False):
+            tab, idx = pr.dg_gate_inputs(S, tiles, seed=20 + i, device=dev,
+                                         per_lane=per_lane)
+            got = float(pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS))
+            want = float(pr.dg_probe_plain(tab, idx, DG_GATE_ROUNDS))
+            errs["dg_probe_kernel"] = max(errs["dg_probe_kernel"], abs(got - want))
+            log(f"[probes] dg_probe_kernel gate (S={S} tiles={tiles}, "
+                f"{'per-lane' if per_lane else 'broadcast'} indices, "
+                f"{DG_GATE_ROUNDS} rounds): kernel {got}, plain {want}")
+            if got != want:
+                raise AssertionError(f"dg_probe_kernel S={S} tiles={tiles}: "
+                                     f"{got} != {want}")
+    S, tiles = pr.DG_CONFIGS[-1]
+    tab, idx = pr.dg_gate_inputs(S, tiles, seed=30, device=dev, integer=False)
+    got = float(pr.dg_probe_kernel(tab, idx, pr.ROUNDS))
+    want = float(pr.dg_probe_plain(tab, idx, pr.ROUNDS))
+    errs["dg_probe_kernel"] = max(errs["dg_probe_kernel"], abs(got - want))
+    log(f"[probes] dg_probe_kernel float table (S={S} tiles={tiles}, "
+        f"{pr.ROUNDS} rounds): kernel {got!r}, plain (float64) {want!r}, "
+        f"rel. diff {abs(got - want) / abs(want):.3e} (rtol {PROBE_FLOAT_RTOL})")
+    if not abs(got - want) <= PROBE_FLOAT_RTOL * abs(want):
+        raise AssertionError("dg_probe_kernel disagrees on the float table")
+    del tab, idx
+
+    # times at the probe's shapes: the kernel's from main(), the plain
+    # version's and the library's here
+    rows = []
+    for res in results:
+        if res["probe"] == "Q3":
+            continue
+        row = dict(res)
+        if res["probe"] == "P1":
+            tab, idx = pr.mm_inputs(res["L"], res["W"], res["NL"],
+                                    getattr(torch, res["dtype"]), dev)
+            table = pr.mm_table(tab)
+            row["plain_ms"] = cuda_ms(lambda: pr.mm_probe_plain(
+                tab, idx, res["rounds"], res["groups"]), reps=1)[0]
+            row["library_ms"], why = mm_library_ms(table, idx, res["rounds"])
+            name = f"mm_probe_kernel {res['label']}"
+            del table
+        else:
+            tab, idx = pr.dg_inputs(res["S"], res["tiles"], dev)
+            row["plain_ms"] = cuda_ms(lambda: pr.dg_probe_plain(
+                tab, idx, res["rounds"]), reps=1)[0]
+            row["library_ms"], why = dg_library_ms(tab, idx, res["rounds"]), None
+            name = f"dg_probe_kernel S={res['S']} tiles={res['tiles']}"
+        del tab, idx
+        row["bound_ms"], row["bound_by"] = probe_bound(res)
+        if why is not None:
+            log(f"[probes] {name}: the library yardstick was refused: {why}")
+        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+        eff = ("" if "eff" not in row else f", one-hot product at "
+               f"{row['eff'] * 100:.1f}% of the dense {row['dtype']} peak")
+        log(f"[probes] {name}: kernel {row['ms']:.3f} ms "
+            f"({row['ms'] / row['rounds'] * 1e3:.1f} us/round), plain "
+            f"{row['plain_ms']:.3f} ms, library {lib}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), kernel / bound "
+            f"{row['ms'] / row['bound_ms']:.2f}{eff} [{where}]")
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return launches, errs, rows
+
+
 def main() -> int:
     name = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     phase_build()
-    errs, times, bounds, launches = {}, {}, {}, {}
+    errs, rows, launches, per_frame = {}, {}, {}, {}
     paths = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
              ("stress14", STRESS14_CASES))
     for tag, cases in paths:
         scene, cam, bvh = phase_scene(tag, dev)
-        e, t, b = phase_kernels(scene, cam, bvh, dev, cases)
+        e, r = phase_kernels(tag, scene, cam, bvh, dev, cases)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
-        times.update(t)
-        bounds.update(b)
-        counts = phase_slice(tag, scene, cam, bvh, {k for k, _ in cases})
+        rows.update(r)
+        counts, per_kind = phase_slice(tag, scene, cam, bvh,
+                                       {k for k, _ in cases})
         launches.update({k: counts[k] for k, _ in cases})
+        per_frame.update(per_kind)
         phase_parity(tag, scene, cam, bvh)
         del scene, cam, bvh
         torch.cuda.empty_cache()
+    p_launches, p_errs, p_rows = phase_probes(dev)
+    launches.update(p_launches)
+    errs.update(p_errs)
 
-    # ms and plain ms: closest hit on the 1080p rays each kernel serves
+    # one row per (kernel, ray kind): the kind's mode, launches per frame,
+    # and what those launches cost above the bound
+    table = []
+    for (k, kind), row in rows.items():
+        n = per_frame.get((k, kind), 0)
+        table.append({"kernel": k, "kind": kind, **row, "launches_per_frame": n,
+                      "excess_ms_per_frame": n * (row["ms"] - row["bound_ms"])})
+        log(f"[rows] {k} {kind} ({row['mode']}, {row['path']}): kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {n} launches/frame, "
+            f"launches x (ms - bound) {table[-1]['excess_ms_per_frame']:.3f} ms/frame")
+    print(json.dumps({"kernel_rows": table, "probe_rows": p_rows}), flush=True)
+
+    # traversal kernels: closest hit on the 1080p rays each serves; probes:
+    # P1 per-group(now), P2 at 19 tiles
+    entry = {k: rows[(k, SERVES[k])] for k in SERVES}
+    entry["mm_probe_kernel"] = next(r for r in p_rows if r.get("label") == P1_LINE)
+    entry["dg_probe_kernel"] = next(r for r in p_rows
+                                    if r.get("tiles") == P2_LINE_TILES)
     kernels = [{
         "name": k,
         "route": "cuda",
@@ -456,12 +782,12 @@ def main() -> int:
         "replaces": KERNELS[k],
         "launches": launches[k],
         "max_abs_err": errs[k],
-        "ms": times[(k, SERVES[k], False)][0],
-        "plain_ms": times[(k, SERVES[k], False)][1],
-        "bound_ms": bounds[k][0],
-        "bound_by": bounds[k][1],
+        "ms": entry[k]["ms"],
+        "plain_ms": entry[k]["plain_ms"],
+        "bound_ms": entry[k]["bound_ms"],
+        "bound_by": entry[k]["bound_by"],
         # no PyTorch call computes a BVH walk
-        "library_ms": None,
+        "library_ms": entry[k].get("library_ms"),
     } for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,118 @@
+"""Build, load and check the port's CUDA sources (``csrc/*.cu``).
+
+Every source is compiled by nvcc for sm_90a into its own shared library with
+a plain C interface, in ``_build/`` (utils/native_build.py), at first use.
+All sources are compiled at once, one nvcc each, in a thread pool, so one
+round of compiles builds every kernel of the port:
+
+- ``traverse.cu``: the BVH4 and meganode kernels (ops/cuda_traverse.py);
+- ``traverse8.cu``: the BVH8 kernels (ops/cuda_traverse.py);
+- ``probes.cu``: the gather probes (probes/r5probe2.py).
+
+The traversal sources are built with ``-fmad=false`` so that their t is
+bit-identical to the plain walk's; the probes' arithmetic is integer or
+exact, so they are built without it. Each library's C functions get the
+signatures of ``SIGNATURES`` when it is loaded; every one returns the
+``cudaError_t`` of its launch as an int.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+from ..utils.native_build import build_shared
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_TRAVERSE_HEADER = os.path.join(CSRC, "traverse_common.cuh")
+# source name -> (extra nvcc flags, included headers)
+SOURCES = {
+    "traverse": (["-fmad=false"], (_TRAVERSE_HEADER,)),
+    "traverse8": (["-fmad=false"], (_TRAVERSE_HEADER,)),
+    "probes": ([], ()),
+}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _trace(n_tables: int, counter: bool) -> list:
+    """A traversal kernel's arguments: its tables, o, d, t_min, t_max,
+    active, n (int64), any_hit, [a scratch counter], t, prim, u, v, stream."""
+    return ([_P] * (n_tables + 5) + [ctypes.c_int64, _I]
+            + [_P] * (5 + int(counter)))
+
+
+# source name -> {C function: argument types}
+SIGNATURES = {
+    "traverse": {"hpt_trace_coherent": _trace(2, False),
+                 "hpt_trace_incoherent": _trace(2, False),
+                 "hpt_trace_meganode": _trace(1, False)},
+    "traverse8": {"hpt_trace_stream8": _trace(2, True),
+                  "hpt_trace_lane8log": _trace(2, True)},
+    # mm: tab_t, idx, L, W, w_pad, l_pad, nl, rounds, groups, is_int8,
+    # partial, out, stream; dg: tab, idx, S, tiles, rounds, partial, out,
+    # stream
+    "probes": {"hpt_mm_probe": [_P, _P] + [_I] * 8 + [_P] * 3,
+               "hpt_dg_probe": [_P, _P, _I, _I, _I, _P, _P, _P]},
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_log = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _build(nvcc: str, name: str) -> tuple[str, str]:
+    extra, deps = SOURCES[name]
+    return build_shared([nvcc] + BASE_FLAGS + extra,
+                        [os.path.join(CSRC, name + ".cu")],
+                        f"lib{name}_sm90a.so", deps=deps)
+
+
+def _load(path: str, name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def load_libraries() -> dict:
+    """Build (where needed) and load every source's library, compiling all
+    of them at once, with the C signatures declared. Returns {source name:
+    CDLL}. Raises on failure."""
+    global build_log
+    with _lock:
+        if not _libs:
+            nvcc = _nvcc()
+            with ThreadPoolExecutor(len(SOURCES)) as pool:
+                built = dict(zip(SOURCES, pool.map(
+                    lambda name: _build(nvcc, name), SOURCES)))
+            build_log = "\n".join(log for _path, log in built.values())
+            for name, (path, _log) in built.items():
+                _libs[name] = _load(path, name)
+        return _libs
+
+
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless ``t`` lies on ``device`` with the dtype ``dtype`` (or
+    one of a tuple of them) and the shape ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

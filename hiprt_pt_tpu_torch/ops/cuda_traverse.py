@@ -16,97 +16,36 @@ wrappers — the counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
 Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
 CUDA tensors it launches its kernel, or raises: there is no fallback. The
-two sources are compiled with nvcc at first use, at the same time, into
-``_build/`` and bound with ctypes. ``launch_counts`` counts the launches of
-each kernel.
+sources are compiled with nvcc at first use and bound with ctypes
+(ops/cuda_build.py). ``launch_counts`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import threading
-from concurrent.futures import ThreadPoolExecutor
-
 import torch
 
+from . import cuda_build
 from . import traverse as plain
+from .cuda_build import check_tensor
 from .routing import KERNEL_TABLES, TABLE_WIDTHS
 from .traverse import (HitRecord, check_meganode_depth, check_stack8_depth,
                        check_stack_depth, per_ray)
-from ..utils.native_build import build_shared
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCES = {"traverse": os.path.join(CSRC, "traverse.cu"),
-           "traverse8": os.path.join(CSRC, "traverse8.cu")}
-HEADER = os.path.join(CSRC, "traverse_common.cuh")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-
-# kernel -> (source, number of table pointers, scratch counter dtype)
+# kernel -> (source, scratch counter dtype)
 _KERNELS = {
-    "trace_coherent": ("traverse", 2, None),
-    "trace_incoherent": ("traverse", 2, None),
-    "trace_meganode": ("traverse", 1, None),
-    "trace_stream8": ("traverse8", 2, torch.int32),
-    "trace_lane8log": ("traverse8", 2, torch.int64),
+    "trace_coherent": ("traverse", None),
+    "trace_incoherent": ("traverse", None),
+    "trace_meganode": ("traverse", None),
+    "trace_stream8": ("traverse8", torch.int32),
+    "trace_lane8log": ("traverse8", torch.int64),
 }
 
 launch_counts = {k: 0 for k in _KERNELS}
-
-_lock = threading.Lock()
-_libs: dict = {}
-build_log = ""
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def load_library() -> dict:
-    """Build (if needed) and load both kernel libraries, compiling the two
-    sources at once. Returns {source name: CDLL}. Raises on failure."""
-    global build_log
-    with _lock:
-        if not _libs:
-            nvcc = _nvcc()
-            with ThreadPoolExecutor(len(SOURCES)) as pool:
-                built = dict(zip(SOURCES, pool.map(
-                    lambda name: build_shared(
-                        [nvcc] + NVCC_FLAGS, [SOURCES[name]],
-                        f"lib{name}_sm90a.so", deps=(HEADER,)),
-                    SOURCES)))
-            build_log = "\n".join(log for _path, log in built.values())
-            for name, (path, _log) in built.items():
-                _libs[name] = ctypes.CDLL(path)
-            for kernel, (src, n_tables, counter) in _KERNELS.items():
-                fn = getattr(_libs[src], "hpt_" + kernel)
-                fn.argtypes = ([ctypes.c_void_p] * (n_tables + 5)
-                               + [ctypes.c_int64, ctypes.c_int]
-                               + [ctypes.c_void_p] * (5 + (counter is not None)))
-                fn.restype = ctypes.c_int
-        return _libs
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _tables(kernel: str, bvh, dev) -> tuple:
@@ -121,7 +60,8 @@ def _tables(kernel: str, bvh, dev) -> tuple:
     ptrs = []
     for name in KERNEL_TABLES[kernel]:
         t = getattr(bvh, name)
-        _check(name, t, torch.float32, (t.shape[0], TABLE_WIDTHS[name]), dev)
+        check_tensor(name, t, torch.float32, (t.shape[0], TABLE_WIDTHS[name]),
+                     dev)
         ptrs.append(t.data_ptr())
     return tuple(ptrs)
 
@@ -131,23 +71,23 @@ def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
     n = o.shape[0]
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
+    check_tensor("o", o, torch.float32, (n, 3), dev)
+    check_tensor("d", d, torch.float32, (n, 3), dev)
     tables = _tables(kernel, bvh, dev)
     tmin = per_ray(t_min, n, dev)
     tmax = per_ray(t_max, n, dev)
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=dev)
-    _check("active", active, torch.bool, (n,), dev)
+    check_tensor("active", active, torch.bool, (n,), dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
-    src, _n_tables, counter_dtype = _KERNELS[kernel]
+    src, counter_dtype = _KERNELS[kernel]
     scratch = ()
     if counter_dtype is not None:
         scratch = (torch.zeros((1,), dtype=counter_dtype, device=dev),)
-    fn = getattr(load_library()[src], "hpt_" + kernel)
+    fn = getattr(cuda_build.load_libraries()[src], "hpt_" + kernel)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*tables,

@@ -22,20 +22,9 @@ import time
 
 import torch
 
+from .core.device import cuda_ms
+
 WIDTH, HEIGHT = 1920, 1080
-
-
-def _cuda_ms(fn, reps=3):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _ris_parts(scene, cam, bvh, opts, settings):
@@ -59,13 +48,13 @@ def _ris_parts(scene, cam, bvh, opts, settings):
     eta = torch.full((n,), 1.5, device=dev)
     args = (opts, scene, bvh, settings, mats, g.position, g.shading_normal,
             g.geometric_normal, g.view_direction, rng, hit, eta)
-    ris_ms = _cuda_ms(lambda: ris_direct_lighting(*args, shadow_coherent=True))
+    ris_ms = cuda_ms(lambda: ris_direct_lighting(*args, shadow_coherent=True))[0]
     wi = -g.view_direction
     o = offset_ray_origin(g.position, g.geometric_normal, wi)
-    sweep_ms = _cuda_ms(lambda: closest_emissive_hit(scene, o, wi, active=hit))
+    sweep_ms = cuda_ms(lambda: closest_emissive_hit(scene, o, wi, active=hit))[0]
     trace = tracer(bvh, coherent=True)
-    shadow_ms = _cuda_ms(lambda: trace(bvh, o, wi, t_min=1e-4, t_max=5.0,
-                                       active=hit, any_hit=True))
+    shadow_ms = cuda_ms(lambda: trace(bvh, o, wi, t_min=1e-4, t_max=5.0,
+                                      active=hit, any_hit=True))[0]
     print(f"[ris] one RIS vertex wavefront on {int(hit.sum())} camera hits: "
           f"{ris_ms:.2f} ms; dense emissive sweep (240 emitters) "
           f"{sweep_ms:.2f} ms; one coherent any-hit ray batch {shadow_ms:.3f} ms")

@@ -183,3 +183,37 @@ def test_gpu_render_matches_cpu(gpu_scene):
     got, ref = imgs
     close = np.all(np.abs(got - ref) <= 1e-3 + 1e-3 * np.abs(ref), axis=-1)
     assert close.mean() >= 0.98
+
+
+@pytest.mark.parametrize("case", ["mm-int8-g1", "mm-int8-g8", "mm-bf16-g2",
+                                  "dg-per-lane", "dg-broadcast"])
+def test_probe_kernels_match_plain(case):
+    """mm_probe_kernel (P1) and dg_probe_kernel (P2) equal their plain
+    versions exactly on seeded integer inputs; the P1 shapes leave masked
+    rows (W = 100), a ragged K (L = 300) and, at 8 groups, columns past a
+    group's end (NL / groups = 25)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.probes import r5probe2 as probes
+
+    dev = torch.device("cuda:0")
+    rounds = 6
+    if case.startswith("mm"):
+        dtype = torch.int8 if "int8" in case else torch.bfloat16
+        groups = int(case.split("-g")[1])
+        tab, idx = probes.mm_gate_inputs(300, 100, 200, dtype, seed=4, device=dev)
+        kernel = "mm_probe_kernel"
+        before = probes.launch_counts[kernel]
+        got = probes.mm_probe_kernel(probes.mm_table(tab), idx, rounds, groups)
+        want = probes.mm_probe_plain(tab, idx, rounds, groups)
+    else:
+        tab, idx = probes.dg_gate_inputs(512, 3, seed=6, device=dev,
+                                         per_lane=case == "dg-per-lane")
+        kernel = "dg_probe_kernel"
+        before = probes.launch_counts[kernel]
+        got = probes.dg_probe_kernel(tab, idx, rounds)
+        want = probes.dg_probe_plain(tab, idx, rounds)
+    torch.cuda.synchronize()
+    assert probes.launch_counts[kernel] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (1, 1) and got.is_cuda
+    assert float(got) == float(want)
