@@ -6,8 +6,13 @@
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
-                source: the five traversal kernels and the two probes) and
-                the BVH builder (g++).
+                source: the five traversal kernels and the two probes), the
+                two earlier kernel versions of previous_kernels/ (outside
+                the package, built only to be timed beside the versions
+                that replaced them) and the BVH build library (g++); print
+                what ptxas says of every kernel, and the registers per
+                thread and resident blocks per SM of mm_probe_kernel and
+                trace_lane8log in both versions.
   Then, for each of the three paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
@@ -22,7 +27,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 1920x1080 wavefront, with finite t_max and inactive rays;
                 1,024 camera or bounce rays also against brute force; then
                 the kernel's and the plain version's time and the kernel's
-                bound on each (kernel, ray kind) at 1080p.
+                bound on each (kernel, ray kind) at 1080p; for
+                trace_lane8log also the earlier version's time on the same
+                rays, in turns with the new one.
   5. slice    — the renderer at 1920x1080, 4 bounces, with the path's
                 options (paths.slice_options): one warm-up frame and 4
                 timed frames. Launch counts are reset just before and read
@@ -40,9 +47,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 at the TPU probe's shapes with the launch counts reset just
                 before and read just after; each probe kernel against its
                 plain version on seeded gate inputs at all seven probe
-                configurations (exactly equal) and on the probe's own
-                inputs (the constant); kernel, plain and library times and
-                the bounds at the probe shapes.
+                configurations (exactly equal, and bit for bit the same
+                in a second run), at shapes off mm_probe_kernel's tile, and
+                on the probe's own inputs (the constant); kernel, plain
+                and library times and the bounds at the probe shapes, and
+                for mm_probe_kernel the earlier version's time beside it.
 The lines before the last hold one row per (kernel, ray kind) and the
 kernels' JSON summary (each kernel's time on the 1080p rays it serves on
 its path, or on its probe's reference configuration, its plain version's,
@@ -131,6 +140,15 @@ DG_GATE_ROUNDS = 4
 PROBE_FLOAT_RTOL = 1e-5
 # the probe configurations the kernels line reports P1 and P2 at
 P1_LINE, P2_LINE_TILES = "per-group(now)", 19
+# P1's gates off its tile (128 table rows x 128 bytes of L a stage, 256
+# gathered rows a block): (L, W, NL), each at int8 and bf16, 1, 2 and 8 groups
+P1_OFF_TILE = ((300, 100, 200), (129, 65, 1048), (2731, 333, 1096))
+P1_OFF_TILE_ROUNDS = 5
+# the earlier versions of mm_probe_kernel and trace_lane8log, kept outside
+# the package for the side-by-side timing: source -> extra nvcc flags; their
+# libraries, once phase_build has loaded them
+PREVIOUS = {"mm_probe_mma_sync": [], "trace_lane8log_step": ["-fmad=false"]}
+_previous = {}
 
 
 def log(*a):
@@ -150,20 +168,118 @@ def phase_device() -> str:
     return name
 
 
+def _kernel_info(fn, flag):
+    """(registers per thread, local or shared memory bytes, resident blocks
+    per SM) from a source's *_info function."""
+    import ctypes
+
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(flag, *(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"kernel info failed: cudaError {err}")
+    return tuple(x.value for x in out)
+
+
 def phase_build():
+    """Build every source at once; returns {kernel: {version: {mode:
+    (registers, memory bytes, blocks per SM)}}} of the two redesigned
+    kernels."""
+    import ctypes
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
     from hiprt_pt_tpu_torch.accel.native import get_lib
     from hiprt_pt_tpu_torch.ops import cuda_build
 
+    here = os.path.dirname(os.path.abspath(__file__))
+    info_args = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    signatures = {
+        "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS,
+                              "hpt_prev_mm_probe_info": info_args},
+        "trace_lane8log_step": {"hpt_prev_trace_lane8log": cuda_build.TRACE8_ARGS,
+                                "hpt_prev_trace_lane8log_info": info_args}}
+
+    def previous(name):
+        return cuda_build.load_source(
+            os.path.join(here, "previous_kernels", name + ".cu"),
+            PREVIOUS[name], signatures[name])
+
     t0 = time.perf_counter()
-    cuda_build.load_libraries()
+    with ThreadPoolExecutor(1 + len(PREVIOUS)) as pool:
+        package = pool.submit(cuda_build.load_libraries)
+        earlier = {name: pool.submit(previous, name) for name in PREVIOUS}
+        libs = package.result()
+        logs = [cuda_build.build_log]
+        for name, fut in earlier.items():
+            _previous[name], output = fut.result()
+            logs.append(output)
     t1 = time.perf_counter()
     get_lib()
     t2 = time.perf_counter()
-    for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("[build] ptxas:", line.strip())
-    log(f"[build] kernels ({len(cuda_build.SOURCES)} sources at once) "
-        f"{t1 - t0:.2f} s, bvh builder {t2 - t1:.2f} s")
+    for line in "\n".join(logs).splitlines():
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "warning" in line or "(C7" in line):
+            log("[build] ptxas:", line.strip().replace("ptxas info    : ", ""))
+    log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
+        f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
+        f"library {t2 - t1:.2f} s")
+    fns = {"mm_probe_kernel": (libs["probes"].hpt_mm_probe_info,
+                               _previous["mm_probe_mma_sync"].hpt_prev_mm_probe_info,
+                               (("int8", 1), ("bf16", 0)), "shared"),
+           "trace_lane8log": (libs["traverse8"].hpt_trace_lane8log_info,
+                              _previous["trace_lane8log_step"].hpt_prev_trace_lane8log_info,
+                              (("closest", 0), ("any-hit", 1)), "local")}
+    info = {}
+    for k, (new_fn, prev_fn, flags, mem) in fns.items():
+        info[k] = {ver: {mode: _kernel_info(fn, flag) for mode, flag in flags}
+                   for ver, fn in (("new", new_fn), ("previous", prev_fn))}
+        for ver, by_mode in info[k].items():
+            for mode, (regs, nbytes, blocks) in by_mode.items():
+                log(f"[build] {k} ({ver}, {mode}): {regs} registers per thread, "
+                    f"{nbytes} bytes of {mem} memory, {blocks} resident blocks "
+                    f"per SM")
+    return info
+
+
+def previous_mm_probe(table, idx, rounds, groups):
+    """The earlier mm_probe_kernel (previous_kernels/mm_probe_mma_sync.cu)
+    on the same operand; one partial sum per 64-column warp tile."""
+    tab = table.tab
+    L, W = tab.shape
+    NL = idx.shape[1]
+    n_tiles = groups * -(-(NL // groups) // 64)
+    partial = torch.empty((rounds * n_tiles,), dtype=torch.float32,
+                          device=tab.device)
+    out = torch.empty((1, 1), dtype=torch.float32, device=tab.device)
+    w_pad, l_pad = table.tab_t.shape
+    err = _previous["mm_probe_mma_sync"].hpt_prev_mm_probe(
+        table.tab_t.data_ptr(), idx.data_ptr(), L, W, w_pad, l_pad, NL, rounds,
+        groups, int(tab.dtype == torch.int8), partial.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(tab.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the earlier mm_probe_kernel failed: cudaError {err}")
+    return out
+
+
+def previous_lane8log(bvh, o, d, t_min, t_max, active, any_hit=False):
+    """The earlier trace_lane8log (previous_kernels/trace_lane8log_step.cu)
+    with the wrapper's arguments."""
+    from hiprt_pt_tpu_torch.ops.traverse import HitRecord, per_ray
+
+    n, dev = o.shape[0], o.device
+    tmin, tmax = per_ray(t_min, n, dev), per_ray(t_max, n, dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+    err = _previous["trace_lane8log_step"].hpt_prev_trace_lane8log(
+        bvh.nodes8l.data_ptr(), bvh.leaf_rows8.data_ptr(), o.data_ptr(),
+        d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), active.data_ptr(), n,
+        int(any_hit), counter.data_ptr(), t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the earlier trace_lane8log failed: cudaError {err}")
+    return HitRecord(t=t, prim=prim, u=u, v=v)
 
 
 def phase_scene(tag, dev):
@@ -425,9 +541,20 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             errs[kname] = max(errs[kname], compare(tag_, rk, rp, any_hit, a))
             mode = "any" if any_hit else "closest"
             row[f"{mode}_ms"], row[f"{mode}_plain_ms"] = k_ms, p_ms
+            before = ""
+            if kname == "trace_lane8log":
+                # the earlier version on the same rays, then the new again
+                v_ms, rv = cuda_ms(lambda: previous_lane8log(
+                    bvh, o, d, t_min, t_max, a, any_hit=any_hit), reps=5)
+                compare(tag_ + " earlier version", rv, rp, any_hit, a)
+                k2_ms = cuda_ms(lambda: kern(bvh, o, d, t_min, t_max, a,
+                                             any_hit=any_hit), reps=5)[0]
+                row[f"{mode}_prev_ms"], row[f"{mode}_ms_again"] = v_ms, k2_ms
+                before = (f", earlier version {v_ms:.3f} ms, kernel again "
+                          f"{k2_ms:.3f} ms")
             log(f"[kernels] {kname} {'any-hit' if any_hit else 'closest'} on "
                 f"{o.shape[0]} {kind} rays ({int(a.sum())} active): kernel "
-                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{before} "
                 f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
         mode = "any" if kind == "shadow" else "closest"
         stats = {}
@@ -438,6 +565,10 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             "path": tag, "mode": mode, "ms": row[f"{mode}_ms"],
             "plain_ms": row[f"{mode}_plain_ms"], "any_ms": row["any_ms"],
             "bound_ms": b_ms, "bound_by": b_by}
+        if f"{mode}_prev_ms" in row:
+            rows[(kname, kind)] |= {"prev_ms": row[f"{mode}_prev_ms"],
+                                    "any_prev_ms": row["any_prev_ms"],
+                                    "ms_again": row[f"{mode}_ms_again"]}
         log(f"[kernels] {kname} bound on {o.shape[0]} {kind} rays ({mode}): "
             f"{b_ms:.4f} ms ({b_by}); plain walk {stats}")
     return errs, rows
@@ -659,13 +790,39 @@ def phase_probes(dev):
     errs = {"mm_probe_kernel": 0.0, "dg_probe_kernel": 0.0}
     for i, (label, L, W, NL, dtype, groups) in enumerate(pr.MM_CONFIGS):
         tab, idx = pr.mm_gate_inputs(L, W, NL, dtype, seed=10 + i, device=dev)
-        got = float(pr.mm_probe_kernel(pr.mm_table(tab), idx, pr.ROUNDS, groups))
+        table = pr.mm_table(tab)
+        first = pr.mm_probe_kernel(table, idx, pr.ROUNDS, groups)
+        again = pr.mm_probe_kernel(table, idx, pr.ROUNDS, groups)
+        got = float(first)
         want = float(pr.mm_probe_plain(tab, idx, pr.ROUNDS, groups))
         errs["mm_probe_kernel"] = max(errs["mm_probe_kernel"], abs(got - want))
         log(f"[probes] mm_probe_kernel {label} gate (L={L} W={W} NL={NL} "
-            f"{dtype} g={groups}, {pr.ROUNDS} rounds): kernel {got}, plain {want}")
+            f"{dtype} g={groups}, {pr.ROUNDS} rounds): kernel {got}, plain "
+            f"{want}, a second run {float(again)}")
         if got != want:
             raise AssertionError(f"mm_probe_kernel {label}: {got} != {want}")
+        if not torch.equal(first, again):
+            raise AssertionError(f"mm_probe_kernel {label}: two runs differ")
+    # off the kernel's tile: masked gathered rows, masked table rows, zero
+    # fill past L
+    for L, W, NL in P1_OFF_TILE:
+        for dtype in pr.MM_DTYPES:
+            tab, idx = pr.mm_gate_inputs(L, W, NL, dtype, seed=40, device=dev)
+            table = pr.mm_table(tab)
+            for groups in (1, 2, 8):
+                got = float(pr.mm_probe_kernel(table, idx, P1_OFF_TILE_ROUNDS,
+                                               groups))
+                want = float(pr.mm_probe_plain(tab, idx, P1_OFF_TILE_ROUNDS,
+                                               groups))
+                errs["mm_probe_kernel"] = max(errs["mm_probe_kernel"],
+                                              abs(got - want))
+                if got != want:
+                    raise AssertionError(
+                        f"mm_probe_kernel off the tile (L={L} W={W} NL={NL} "
+                        f"{dtype} g={groups}): {got} != {want}")
+    log(f"[probes] mm_probe_kernel off its tile: {len(P1_OFF_TILE)} shapes "
+        f"{P1_OFF_TILE} x int8, bf16 x 1, 2, 8 groups, {P1_OFF_TILE_ROUNDS} "
+        f"rounds: every result equals the plain version's")
     for i, (S, tiles) in enumerate(pr.DG_CONFIGS):
         for per_lane in (True, False):
             tab, idx = pr.dg_gate_inputs(S, tiles, seed=20 + i, device=dev,
@@ -705,6 +862,11 @@ def phase_probes(dev):
             row["plain_ms"] = cuda_ms(lambda: pr.mm_probe_plain(
                 tab, idx, res["rounds"], res["groups"]), reps=1)[0]
             row["library_ms"], why = mm_library_ms(table, idx, res["rounds"])
+            # the earlier version on the same operand, then the new again
+            row["prev_ms"] = cuda_ms(lambda: previous_mm_probe(
+                table, idx, res["rounds"], res["groups"]), reps=3)[0]
+            row["ms_again"] = cuda_ms(lambda: pr.mm_probe_kernel(
+                table, idx, res["rounds"], res["groups"]), reps=3)[0]
             name = f"mm_probe_kernel {res['label']}"
             del table
         else:
@@ -719,7 +881,9 @@ def phase_probes(dev):
             log(f"[probes] {name}: the library yardstick was refused: {why}")
         lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
         eff = ("" if "eff" not in row else f", one-hot product at "
-               f"{row['eff'] * 100:.1f}% of the dense {row['dtype']} peak")
+               f"{row['eff'] * 100:.1f}% of the dense {row['dtype']} peak; "
+               f"earlier version {row['prev_ms']:.3f} ms, kernel again "
+               f"{row['ms_again']:.3f} ms")
         log(f"[probes] {name}: kernel {row['ms']:.3f} ms "
             f"({row['ms'] / row['rounds'] * 1e3:.1f} us/round), plain "
             f"{row['plain_ms']:.3f} ms, library {lib}, bound "
@@ -735,7 +899,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    phase_build()
+    build_info = phase_build()
     errs, rows, launches, per_frame = {}, {}, {}, {}
     paths = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
              ("stress14", STRESS14_CASES))
@@ -763,11 +927,14 @@ def main() -> int:
         n = per_frame.get((k, kind), 0)
         table.append({"kernel": k, "kind": kind, **row, "launches_per_frame": n,
                       "excess_ms_per_frame": n * (row["ms"] - row["bound_ms"])})
+        before = ("" if "prev_ms" not in row else
+                  f" (earlier version {row['prev_ms']:.3f} ms)")
         log(f"[rows] {k} {kind} ({row['mode']}, {row['path']}): kernel "
-            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['ms']:.3f} ms{before}, plain {row['plain_ms']:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {n} launches/frame, "
             f"launches x (ms - bound) {table[-1]['excess_ms_per_frame']:.3f} ms/frame")
-    print(json.dumps({"kernel_rows": table, "probe_rows": p_rows}), flush=True)
+    print(json.dumps({"kernel_rows": table, "probe_rows": p_rows,
+                      "build_info": build_info}), flush=True)
 
     # traversal kernels: closest hit on the 1080p rays each serves; probes:
     # P1 per-group(now), P2 at 19 tiles

@@ -14,24 +14,44 @@
 //   sum_r sum_c sum_k max_s tab[(idx[s, k] + r) mod S, c * 128 + k].
 //
 // P1 computes the one-hot product on the tensor cores, because the
-// product's cost is what the probe measures: mma.sync m16n8k32 (s8 x s8 ->
-// s32) for an int8 table, m16n8k16 (bf16 x bf16 -> f32) for a bf16 table.
-// A is the table transposed, (W, L) with L contiguous, zero-padded to a
-// multiple of 16 rows and 32 columns (the wrapper's one-time set-up copy);
-// B, the one-hot matrix, is never stored: each lane knows the row sl of its
-// B column and builds its B fragment in registers (one nonzero byte, or
-// bf16 1.0, in the one k-step that holds sl). What bounds the function P1
+// product's cost is what the probe measures. What bounds the function P1
 // returns is its W NL rounds maxima (a few microseconds at the probe's
 // shapes), not the product: the product's 2 L W NL rounds operations at the
 // dense int8 or bf16 peak are the cost of the probe's method, and the share
-// of that peak this kernel reaches is what the probe reports. It feeds
-// mma.sync from L1/L2 with plain loads (wgmma and TMA-fed shared-memory
-// tiles are for a later version). A warp owns 64 columns for one round and walks all of W in
-// 16-row tiles, folding each tile's products into its columns' running
-// maxima; `groups` keeps the TPU probe's meaning (one product per group of
-// NL / groups columns with the group's slice of idx) and on the card only
-// changes how the warps' 64-column tiles are laid over the columns: a tile
-// never straddles a group, and its columns past the group's end are masked.
+// of that peak the kernel reaches is what the probe reports. What bounds
+// the product on this card is feeding the tensor cores: only wgmma reaches
+// their full rate, it reads its B operand from shared memory, and every
+// block streams the whole table (6.4 MB in int8, 12.7 MB in bf16, from L2)
+// once per round and 256 gathered rows.
+//
+// The design. The operands are swapped against the TPU kernel's: gl^T =
+// onehot^T . tab, so the one-hot matrix is wgmma's A operand, from
+// registers, and the table is B. A is never stored: a lane knows the rows
+// sl of its fragment's two rows per 64-row block and builds the fragment in
+// registers, nonzero in the one K step that holds sl. B is the table
+// transposed, (W, L) with L contiguous and zero-padded to a row stride of a
+// multiple of 16 bytes (the wrapper's one-time set-up copy): K-major, the
+// only layout int8 wgmma takes. (The other shape, the table as A from
+// shared memory and a one-hot B written into a zeroed shared tile per K
+// step, would store what the registers hold for nothing and read twice as
+// much shared memory per product.) A block is one producer warpgroup and
+// two consumer warpgroups (hopper_async.cuh has the PTX): one producer
+// thread keeps a ring of kMmStages table tiles (kMmN rows x 128 bytes of L,
+// 128-byte swizzle) in flight with TMA, full and empty mbarriers per stage;
+// TMA zero-fills what a tile reaches past W or past the padded L, so no
+// shape is refused. Each consumer warpgroup owns kMmBlocks 64-row blocks of
+// gathered rows: per stage and K step (32 int8 or 16 bf16 elements) it
+// issues one wgmma m64n128 per block (s8 x s8 -> s32, k32; bf16 x bf16 ->
+// f32, k16) into 2 x 64 accumulator registers, drains them, and after the K
+// loop over all of L folds the accumulators into its rows' running maxima
+// (a row's maximum is a maximum along N over a thread's registers, then
+// over the four lanes of its quad). The last tile of W is as narrow as the
+// rows left allow (n16, n32, n64 or n128 on the same stages), so that W =
+// 2,320 costs 18 1/8 tiles and not 19. `groups` keeps the TPU probe's
+// meaning (one product per group of NL / groups columns with the group's
+// slice of idx) and on the card only changes how the blocks' kMmRows
+// gathered rows are laid over the columns: a block never straddles a
+// group, and its rows past the group's end are masked.
 //
 // P2 reads rows straight from device memory: a block per (tile, round), a
 // thread per (lane, slice of the S rows); neighbouring lanes read
@@ -40,7 +60,7 @@
 // bytes (the table, the indices and the output once); the gathered words
 // come from L2, which holds the whole table at the probe's sizes.
 //
-// Both probes write one partial sum per (warp or block, round) and add the
+// Both probes write one partial sum per (block, round) and add the
 // partials in a second pass in a fixed order, never with atomics, so the
 // result repeats bit for bit. With integer table values every partial sum
 // is an integer, exact in f32 below 2^24, and the result is exact.
@@ -48,18 +68,32 @@
 // Built without -fmad=false (unlike the traversal sources): there is no
 // floating-point product to keep bit-identical.
 
+#include <cuda.h>  // the tensor map's types only; libcuda is not linked
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <climits>
 #include <type_traits>
 
+#include "hopper_async.cuh"
+
 namespace {
 
-constexpr int kMmWarps = 4;          // warps per block
-constexpr int kMmTiles = 8;          // n8 tiles per warp
-constexpr int kMmCols = 8 * kMmTiles;  // columns per warp
+using namespace hpt;
+
+// P1's tile: 2 consumer warpgroups x kMmBlocks 64-row blocks of gathered
+// rows against kMmN table rows, 128 accumulator registers a thread.
+constexpr int kMmConsumers = 2;              // consumer warpgroups per block
+constexpr int kMmThreads = (kMmConsumers + 1) * 128;
+constexpr int kMmBlocks = 2;                 // 64-row blocks per warpgroup
+constexpr int kMmN = 128;                    // table rows (W) per tile
+constexpr int kMmRows = kMmConsumers * kMmBlocks * 64;  // gathered rows per block
+constexpr int kMmChunkBytes = 128;           // K bytes per stage: one swizzle row
+constexpr int kMmStageBytes = kMmN * kMmChunkBytes;
+constexpr int kMmStages = 7;                 // table tiles in flight (112 KB)
+constexpr int kMmSmemBytes = kMmStages * kMmStageBytes + 1024;
 constexpr int kDgLanes = 128;        // lanes of a P2 tile
 constexpr int kDgSlices = 8;         // slices of the S rows per block
 constexpr int kSumThreads = 256;
@@ -69,149 +103,204 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-__device__ __forceinline__ uint32_t load_u32(const void* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// P1. Fragment layouts (PTX ISA, mma.m16n8k32 .s8 and mma.m16n8k16 .bf16):
-// lane = 4 * g + q. A: rows g and g + 8; int8 columns 4q..4q+3 and
-// 16 + 4q..; bf16 columns 2q, 2q+1 and 8 + 2q, 8 + 2q + 1. B: column g;
-// int8 rows 4q..4q+3 (b0) and 16 + 4q.. (b1); bf16 rows 2q, 2q+1 (b0) and
-// 8 + 2q.. (b1). C: rows g (c0, c1) and g + 8 (c2, c3), columns 2q, 2q+1.
 template <bool kInt8>
-__global__ void __launch_bounds__(kMmWarps * 32)
-mm_probe_kernel(const void* __restrict__ tab_t, const int* __restrict__ idx,
-                int L, int W, int w_pad, int l_pad, int nl, int groups,
-                int tiles_per_group, float* __restrict__ partial) {
-  using Acc = typename std::conditional<kInt8, int, float>::type;
-  constexpr int kStep = kInt8 ? 32 : 16;  // K of one mma
-  constexpr int kElem = kInt8 ? 1 : 2;    // bytes per table element
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int r = blockIdx.y;
-  const int n_wtiles = groups * tiles_per_group;
-  const int wtile = blockIdx.x * kMmWarps + (threadIdx.x >> 5);
-  float warp_sum = 0.0f;
-  if (wtile < n_wtiles) {  // uniform over the warp
-    const int gw = nl / groups;
-    const int grp = wtile / tiles_per_group;
-    const int col0 = (wtile % tiles_per_group) * kMmCols;  // within the group
-    // the one-hot B column of this lane in each n8 tile: the k-step that
-    // holds its row sl, and its two B registers in that step
-    int kstep[kMmTiles];
-    uint32_t bhot0[kMmTiles], bhot1[kMmTiles];
-#pragma unroll
-    for (int t = 0; t < kMmTiles; ++t) {
-      const int c = col0 + 8 * t + g;
-      kstep[t] = -1;
-      bhot0[t] = bhot1[t] = 0u;
-      if (c < gw) {
-        const int sl = floor_mod(idx[(r % 8) * nl + grp * gw + c] + r, L);
-        kstep[t] = sl / kStep;
-        const int k = sl % kStep;
-        if constexpr (kInt8) {
-          const int d0 = k - 4 * q, d1 = k - 16 - 4 * q;
-          if (d0 >= 0 && d0 < 4) bhot0[t] = 1u << (8 * d0);
-          if (d1 >= 0 && d1 < 4) bhot1[t] = 1u << (8 * d1);
-        } else {
-          const int d0 = k - 2 * q, d1 = k - 8 - 2 * q;
-          if (d0 == 0 || d0 == 1) bhot0[t] = 0x3F80u << (16 * d0);  // bf16 1.0
-          if (d1 == 0 || d1 == 1) bhot1[t] = 0x3F80u << (16 * d1);
-        }
-      }
-    }
-    Acc lowest;
-    if constexpr (kInt8) {
-      lowest = INT_MIN;
-    } else {
-      lowest = -INFINITY;
-    }
-    Acc colmax[kMmTiles][2];
-#pragma unroll
-    for (int t = 0; t < kMmTiles; ++t) colmax[t][0] = colmax[t][1] = lowest;
+using MmAcc = typename std::conditional<kInt8, int, float>::type;
 
-    const char* A = static_cast<const char*>(tab_t);
-    const int n_steps = l_pad / kStep;
-    for (int m0 = 0; m0 < w_pad; m0 += 16) {
-      const char* row_lo = A + (size_t)(m0 + g) * l_pad * kElem;
-      const char* row_hi = row_lo + (size_t)8 * l_pad * kElem;
-      Acc acc[kMmTiles][4];
+// The register word with element d set to one (int8 1, bf16 1.0).
+template <bool kInt8>
+__device__ __forceinline__ uint32_t one_hot(int d) {
+  return kInt8 ? 1u << (8 * d) : 0x3F80u << (16 * d);
+}
+
+// One tile of P1, for a consumer thread: the products of the block's
+// gathered rows with the kN table rows from n0 on (the first kN rows of each
+// stage's tile), over all of L through the ring's stages, then the fold of
+// the products into the thread's rows' running maxima. `whole`: every table
+// row of the tile is below W; else the rows past W (zero fill, not data) are
+// left out of the maxima. code: see mm_probe_kernel.
+template <bool kInt8, int kN>
+__device__ __forceinline__ void mm_tile(
+    uint32_t tiles, uint64_t* full_bar, uint64_t* empty_bar, int n_chunks,
+    const int (&code)[kMmBlocks][2], int n0, int W, bool whole, int q, int lane,
+    int& stage, uint32_t& phase, MmAcc<kInt8> (&rowmax)[kMmBlocks][2]) {
+  constexpr int kSteps = kMmChunkBytes / 32;  // wgmma K steps per stage
+  MmAcc<kInt8> acc[kMmBlocks][kN / 2];
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    mbar_wait(smem_u32(&full_bar[stage]), phase);
+    const uint64_t desc = wgmma_desc_k128(tiles + stage * kMmStageBytes);
 #pragma unroll
-      for (int t = 0; t < kMmTiles; ++t)
-        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0;
-      for (int s = 0; s < n_steps; ++s) {
-        const int k0 = s * kStep;
-        uint32_t a[4];
-        if constexpr (kInt8) {
-          a[0] = load_u32(row_lo + k0 + 4 * q);
-          a[1] = load_u32(row_hi + k0 + 4 * q);
-          a[2] = load_u32(row_lo + k0 + 16 + 4 * q);
-          a[3] = load_u32(row_hi + k0 + 16 + 4 * q);
-        } else {
-          a[0] = load_u32(row_lo + 2 * (k0 + 2 * q));
-          a[1] = load_u32(row_hi + 2 * (k0 + 2 * q));
-          a[2] = load_u32(row_lo + 2 * (k0 + 8 + 2 * q));
-          a[3] = load_u32(row_hi + 2 * (k0 + 8 + 2 * q));
-        }
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s2 = 2 * (chunk * kSteps + ks);
+      uint32_t a[kMmBlocks][4];
 #pragma unroll
-        for (int t = 0; t < kMmTiles; ++t) {
-          const bool hot = kstep[t] == s;
-          const uint32_t b0 = hot ? bhot0[t] : 0u, b1 = hot ? bhot1[t] : 0u;
-          if constexpr (kInt8) {
-            mma_s8(acc[t], a, b0, b1);
-          } else {
-            mma_bf16(acc[t], a, b0, b1);
-          }
-        }
-      }
-      // fold rows g and g + 8 of this tile into the column maxima; rows
-      // past W are padding
-      const bool lo_ok = m0 + g < W, hi_ok = m0 + g + 8 < W;
+      for (int b = 0; b < kMmBlocks; ++b) {
 #pragma unroll
-      for (int t = 0; t < kMmTiles; ++t) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (lo_ok) colmax[t][j] = max(colmax[t][j], acc[t][j]);
-          if (hi_ok) colmax[t][j] = max(colmax[t][j], acc[t][2 + j]);
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t word = one_hot<kInt8>(code[b][h] & 3);
+          a[b][h] = (code[b][h] >> 2) == s2 ? word : 0u;
+          a[b][2 + h] = (code[b][h] >> 2) == s2 + 1 ? word : 0u;
         }
       }
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < kMmBlocks; ++b) {
+        wgmma_rs(acc[b], a[b], desc + 2 * ks, (chunk | ks) != 0);
+      }
+      wgmma_commit();
+      // drained at every K step: the A registers of the next step are free
+      // to build, and the other consumer warpgroup's products fill the gap
+      wgmma_wait<0>();
     }
-    // the maximum over the eight row groups (lanes of equal q), then the
-    // sum of the valid columns' maxima held by lanes 0..3
-#pragma unroll
-    for (int t = 0; t < kMmTiles; ++t) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        Acc v = colmax[t][j];
-        v = max(v, __shfl_xor_sync(0xffffffffu, v, 4));
-        v = max(v, __shfl_xor_sync(0xffffffffu, v, 8));
-        v = max(v, __shfl_xor_sync(0xffffffffu, v, 16));
-        if (g == 0 && col0 + 8 * t + 2 * q + j < gw) warp_sum += (float)v;
-      }
+    if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+    if (++stage == kMmStages) {
+      stage = 0;
+      phase ^= 1u;
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    warp_sum += __shfl_xor_sync(0xffffffffu, warp_sum, off);
-  if (lane == 0 && wtile < n_wtiles) partial[(size_t)r * n_wtiles + wtile] = warp_sum;
+  for (int b = 0; b < kMmBlocks; ++b) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      if (whole || n0 + 8 * (i >> 2) + 2 * q + (i & 1) < W) {
+        rowmax[b][h] = max(rowmax[b][h], acc[b][i]);
+      }
+    }
+  }
+}
+
+// P1. A block is two consumer warpgroups and one producer warpgroup. The
+// block owns kMmRows gathered rows (columns of NL) of one round: consumer
+// warpgroup w, 64-row block b, warp v, lane 4 g + q holds the rows
+// (w kMmBlocks + b) 64 + 16 v + g and + 8. A row's one-hot operand is one
+// register: which half K step holds sl and where in that half's register
+// word the nonzero element sits (hopper_async.cuh has the fragment
+// layouts). Launched with 168 registers a thread; the producer warpgroup
+// gives registers up (setmaxnreg) and the consumers take 232.
+template <bool kInt8>
+__global__ void __launch_bounds__(kMmThreads, 1)
+mm_probe_kernel(const __grid_constant__ CUtensorMap tmap,
+                const int* __restrict__ idx, int L, int W, int n_chunks, int nl,
+                int groups, int tiles_per_group, float* __restrict__ partial) {
+  using Acc = MmAcc<kInt8>;
+  constexpr int kHalf = kInt8 ? 16 : 8;    // K of one A register: half a wgmma
+  constexpr int kChunkElems = kMmChunkBytes / (kInt8 ? 1 : 2);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full_bar[kMmStages], empty_bar[kMmStages];
+  __shared__ float warp_sums[kMmConsumers * 4];
+  // the swizzle pattern repeats every 1024 bytes: the tiles start on one
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n_ntiles = (W + kMmN - 1) / kMmN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMmStages; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 1);
+      mbar_init(smem_u32(&empty_bar[s]), kMmConsumers * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == kMmConsumers) {
+    // the producer: one thread keeps kMmStages table tiles in flight
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kMmConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int nt = 0; nt < n_ntiles; ++nt) {
+        for (int chunk = 0; chunk < n_chunks; ++chunk) {
+          mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1u);
+          const uint32_t bar = smem_u32(&full_bar[stage]);
+          mbar_arrive_expect_tx(bar, kMmStageBytes);
+          tma_load_2d(tiles + stage * kMmStageBytes, &tmap, bar,
+                      chunk * kChunkElems, nt * kMmN);
+          if (++stage == kMmStages) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, q = lane & 3;
+    const int r = blockIdx.y;
+    const int gw = nl / groups;
+    const int grp = blockIdx.x / tiles_per_group;
+    const int col0 = (blockIdx.x % tiles_per_group) * kMmRows;  // in the group
+    // per row: (the half K step that holds sl) * 4 + (the nonzero element's
+    // place in that half's register), or -1 where no element is this
+    // lane's or the row is past the group's end
+    int code[kMmBlocks][2];
+    Acc rowmax[kMmBlocks][2];
+#pragma unroll
+    for (int b = 0; b < kMmBlocks; ++b) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = col0 + (wg * kMmBlocks + b) * 64 + warp * 16 + g + 8 * h;
+        code[b][h] = -1;
+        if constexpr (kInt8) {
+          rowmax[b][h] = INT_MIN;
+        } else {
+          rowmax[b][h] = -INFINITY;
+        }
+        if (c < gw) {
+          const int sl = floor_mod(idx[(r % 8) * nl + grp * gw + c] + r, L);
+          const int d = sl % kHalf - (kHalf / 4) * q;
+          if (d >= 0 && d < kHalf / 4) code[b][h] = (sl / kHalf) * 4 + d;
+        }
+      }
+    }
+    // whole tiles of kMmN table rows, then the last one as narrow as the
+    // rows that are left allow
+    int stage = 0;
+    uint32_t phase = 0;
+    const int last = (n_ntiles - 1) * kMmN;
+    for (int n0 = 0; n0 < last; n0 += kMmN) {
+      mm_tile<kInt8, kMmN>(tiles, full_bar, empty_bar, n_chunks, code, n0, W,
+                           true, q, lane, stage, phase, rowmax);
+    }
+    auto tail = [&](auto n) {
+      mm_tile<kInt8, decltype(n)::value>(tiles, full_bar, empty_bar, n_chunks,
+                                         code, last, W, false, q, lane, stage,
+                                         phase, rowmax);
+    };
+    if (W - last <= 16) {
+      tail(std::integral_constant<int, 16>());
+    } else if (W - last <= 32) {
+      tail(std::integral_constant<int, 32>());
+    } else if (W - last <= 64) {
+      tail(std::integral_constant<int, 64>());
+    } else {
+      tail(std::integral_constant<int, kMmN>());
+    }
+    // a row's maximum over the four lanes of its quad, then the sum of the
+    // valid rows' maxima: per warp by shuffles, per block in warp order
+    float sum = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kMmBlocks; ++b) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Acc v = rowmax[b][h];
+        v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const int c = col0 + (wg * kMmBlocks + b) * 64 + warp * 16 + g + 8 * h;
+        if (q == 0 && c < gw) sum += (float)v;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) warp_sums[wg * 4 + warp] = sum;
+    named_barrier(1, kMmConsumers * 128);
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int w = 0; w < kMmConsumers * 4; ++w) total += warp_sums[w];
+      partial[(size_t)r * gridDim.x + blockIdx.x] = total;
+    }
+  }
 }
 
 // P2: block (tile c, round r); thread (lane k, slice y) takes rows
@@ -265,28 +354,100 @@ sum_partials_kernel(const float* __restrict__ partial, int n,
 
 }  // namespace
 
-// tab_t: (w_pad, l_pad) int8 or bf16, the table transposed and zero-padded;
-// idx: (8, nl) int32; partial: rounds * groups * tiles_per_group floats,
-// tiles_per_group = ceil(nl / groups / 64); out: one float. Returns the
-// launches' cudaError.
+// cuTensorMapEncodeTiled, looked up in the libcuda that the process has
+// loaded already: nothing is linked against it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+template <bool kInt8>
+static int launch_mm_probe(const CUtensorMap& tmap, const int* idx, int L, int W,
+                           int n_chunks, int nl, int groups, int tiles_per_group,
+                           int rounds, float* partial, cudaStream_t stream) {
+  auto kernel = mm_probe_kernel<kInt8>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(groups * tiles_per_group, rounds), kMmThreads, kMmSmemBytes,
+           stream>>>(tmap, idx, L, W, n_chunks, nl, groups, tiles_per_group,
+                     partial);
+  return (int)cudaGetLastError();
+}
+
+// Gathered rows (columns of NL) per block: the wrapper sizes `partial` by it.
+extern "C" int hpt_mm_probe_rows() { return kMmRows; }
+
+// tab_t: (w_pad, l_pad) int8 or bf16, the table transposed and zero-padded,
+// l_pad a multiple of 16 bytes; idx: (8, nl) int32; partial: rounds * groups
+// * tiles_per_group floats, tiles_per_group = ceil(nl / groups /
+// hpt_mm_probe_rows()); out: one float. Returns the launches' cudaError, or
+// -1 where libcuda's tensor-map encoder is missing and -(100 + CUresult)
+// where it refuses the table.
 extern "C" int hpt_mm_probe(const void* tab_t, const int* idx, int L, int W,
                             int w_pad, int l_pad, int nl, int rounds,
                             int groups, int is_int8, float* partial,
                             float* out, cudaStream_t stream) {
+  (void)w_pad;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const int elem = is_int8 ? 1 : 2;
+  // the table as the K-major B operand: l_pad of K innermost, W rows; a box
+  // of one swizzle row of K by kMmN rows, zero fill past either edge
+  CUtensorMap tmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)l_pad, (cuuint64_t)W};
+  const cuuint64_t strides[1] = {(cuuint64_t)l_pad * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(kMmChunkBytes / elem), (cuuint32_t)kMmN};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(
+      &tmap,
+      is_int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(tab_t), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return -(100 + (int)res);
   const int gw = nl / groups;
-  const int tiles_per_group = (gw + kMmCols - 1) / kMmCols;
-  const int n_wtiles = groups * tiles_per_group;
-  const dim3 grid((n_wtiles + kMmWarps - 1) / kMmWarps, rounds);
-  if (is_int8) {
-    mm_probe_kernel<true><<<grid, kMmWarps * 32, 0, stream>>>(
-        tab_t, idx, L, W, w_pad, l_pad, nl, groups, tiles_per_group, partial);
-  } else {
-    mm_probe_kernel<false><<<grid, kMmWarps * 32, 0, stream>>>(
-        tab_t, idx, L, W, w_pad, l_pad, nl, groups, tiles_per_group, partial);
-  }
+  const int tiles_per_group = (gw + kMmRows - 1) / kMmRows;
+  const int n_chunks = (l_pad * elem + kMmChunkBytes - 1) / kMmChunkBytes;
+  const int err =
+      is_int8 ? launch_mm_probe<true>(tmap, idx, L, W, n_chunks, nl, groups,
+                                      tiles_per_group, rounds, partial, stream)
+              : launch_mm_probe<false>(tmap, idx, L, W, n_chunks, nl, groups,
+                                       tiles_per_group, rounds, partial, stream);
+  if (err != 0) return err;
   sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(
-      partial, rounds * n_wtiles, out);
+      partial, rounds * groups * tiles_per_group, out);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, static + dynamic shared memory and resident blocks
+// per SM of P1's kernel (int8 or bf16), for the records.
+extern "C" int hpt_mm_probe_info(int is_int8, int* regs, int* smem_bytes,
+                                 int* blocks_per_sm) {
+  auto info = [&](auto kernel) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return (int)e;
+    *regs = attr.numRegs;
+    *smem_bytes = (int)attr.sharedSizeBytes + kMmSmemBytes;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMmSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, kMmThreads, kMmSmemBytes);
+  };
+  return is_int8 ? info(mm_probe_kernel<true>) : info(mm_probe_kernel<false>);
 }
 
 // tab: (S, tiles * 128) f32; idx: (S, 128) int32; partial: rounds * tiles

@@ -17,11 +17,20 @@
 // _kernel_lane8log (hiprt_pt_tpu/ops/pallas_traverse.py:1331, K5).
 //
 // What bounds them on this card: the latency of dependent node and leaf
-// loads, as for the BVH4 kernels (traverse.cu). At 2.04M triangles the
-// tables no longer fit the 50 MB L2 (nodes8l 11.8 MB, leaf_rows8 115 MB), so
-// a leaf visit that misses L2 waits on device memory. Both kernels are
-// persistent: as many blocks as fit the card at once, each taking work from
-// a global counter, so that no SM idles behind a long walk.
+// loads, and the lanes of a warp that sit idle while the others work. At
+// 2.04M triangles nodes8l (11.8 MB) stays in the 50 MB L2 and leaf_rows8
+// (115 MB; a leaf holds 9 triangles on average) does not, so a leaf visit
+// that misses L2 waits on device memory. Both kernels are persistent: as
+// many blocks as fit the card at once, each taking work from a global
+// counter, so that no SM idles behind a long walk. trace_stream8 keeps a
+// packet's lanes together by walking the packet as one; trace_lane8log, for
+// rays that scatter, keeps each body of its loop (descent, leaf) for the
+// lanes that need it, orders children with one register per child, leaves
+// the nearest child off the stack, drops stack entries the ray has passed
+// without loading them, and reads a leaf with 16-byte loads, a group's
+// loads ahead of its tests (see the kernel).
+
+#include <climits>
 
 #include "traverse_common.cuh"
 
@@ -197,13 +206,19 @@ trace_stream8_kernel(const float* __restrict__ nodes8l,
   }
 }
 
-// Ascending compare-exchange of (key, ref) pairs.
-__device__ __forceinline__ void cx(float* k, int* r, int a, int b) {
-  if (k[a] > k[b]) {
-    const float tk = k[a]; k[a] = k[b]; k[b] = tk;
-    const int tr = r[a]; r[a] = r[b]; r[b] = tr;
-  }
+// Ascending compare-exchange of two sort keys.
+__device__ __forceinline__ void cx(unsigned (&k)[8], int a, int b) {
+  const unsigned lo = min(k[a], k[b]), hi = max(k[a], k[b]);
+  k[a] = lo;
+  k[b] = hi;
 }
+
+constexpr int kLaneThreads = 128;
+// at least four blocks an SM leaves ptxas up to 128 registers a thread; it
+// takes 80, so six blocks are resident (eight would spill)
+constexpr int kLaneBlocksPerSM = 4;
+constexpr int kNone = INT_MIN;    // no node or leaf in hand
+constexpr unsigned kMissKey = 0xffffffffu;
 
 // K5 port. One thread per ray, persistent: every thread of the card's
 // resident blocks walks one ray at a time over nodes8l + leaf_rows8 with its
@@ -212,17 +227,31 @@ __device__ __forceinline__ void cx(float* k, int* r, int a, int b) {
 // counter, one atomic per warp for the lanes that need a ray (ballot + rank):
 // the GPU form of the TPU kernel's lane pool refill. The store at the ray's
 // own index takes the place of the completion log and its unscramble scatter
-// (pallas_traverse.py:1738-1767). A lane takes one step (a node or a leaf
-// visit) per turn of the loop, so that a lane whose ray ends takes a new ray
-// while its neighbours go on. At a node the hit children are sorted by entry
-// distance (a 19-comparator network) and pushed far-to-near. The walk reads
-// exact f32 triangles, so no winner refinement follows; the 128-triangle
-// cluster leaves of the TPU kernel exist for its matrix unit and are not
-// walked.
+// (pallas_traverse.py:1738-1767). The walk reads exact f32 triangles, so no
+// winner refinement follows; the 128-triangle cluster leaves of the TPU
+// kernel exist for its matrix unit and are not walked.
+//
+// The loop is a "while-while" walk. A turn has three parts that the warp
+// runs together: the refill (lanes whose ray ended take new rays until every
+// lane holds a live ray or the pool is empty; an inactive ray is answered at
+// once); the descent (a lane goes down through nodes until it holds a leaf
+// or its ray ends); the leaf (every lane that holds one tests it). So the
+// node body and the leaf body each run with the lanes that need it, not both
+// on every step.
+//   Node: 13 16-byte loads, eight slab tests, and one sort key per child: the
+//   entry distance's bits (>= 0, so they order as unsigned) with the child's
+//   slot in the low three bits, all ones for a miss. A 19-comparator network
+//   of min/max sorts the eight keys. The nearest hit child stays in a
+//   register as the next visit; the others go on the stack far to near, each
+//   with its entry distance (closest hit only), so that a pop skips an entry
+//   the ray's best t has since passed without loading it.
+//   Leaf: four triangles are 36 floats, nine 16-byte loads; the first four
+//   and the row's count are loaded together, the next groups only where the
+//   count asks for them, all of a group's loads before its tests.
 template <bool kAnyHit>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kLaneThreads, kLaneBlocksPerSM)
 trace_lane8log_kernel(const float4* __restrict__ nodes8l,
-                      const float* __restrict__ leaf_rows8,
+                      const float4* __restrict__ leaf_rows8,
                       const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ tmin,
                       const float* __restrict__ tmax,
@@ -233,17 +262,41 @@ trace_lane8log_kernel(const float4* __restrict__ nodes8l,
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   int64_t i = -1;        // this lane's ray; -1 = needs one, n = pool empty
-  int stack[kStack8];
+  int cur = kNone;       // the node row (>= 0) or leaf (-(row) - 1) to visit
+  int stack_ref[kStack8];
+  float stack_t[kAnyHit ? 1 : kStack8];
   int sp = 0;
   float best_t = 0.0f, best_u = 0.0f, best_v = 0.0f;
   int best_prim = -1;
   Ray r = {};
 
+  // ends the lane's ray: the record goes to the ray's own index
+  auto finish = [&]() {
+    write_hit(i, kAnyHit, best_prim, best_t, best_u, best_v, t_out, prim_out,
+              u_out, v_out);
+    i = -1;
+    cur = kNone;
+    sp = 0;
+  };
+  // the next visit from the stack, or the end of the ray
+  auto pop = [&]() {
+    cur = kNone;
+    while (sp > 0) {
+      --sp;
+      if (kAnyHit || stack_t[kAnyHit ? 0 : sp] <= best_t) {
+        cur = stack_ref[sp];
+        return;
+      }
+    }
+    finish();
+  };
+
   while (true) {
     // refill: the lanes without a ray take consecutive ids
-    const bool need = i < 0;
-    const unsigned want = __ballot_sync(full, need);
-    if (want != 0) {
+    while (true) {
+      const bool need = i < 0;
+      const unsigned want = __ballot_sync(full, need);
+      if (want == 0) break;
       const int leader = __ffs(want) - 1;
       unsigned long long base = 0;
       if (lane == leader) base = atomicAdd(next_ray, (unsigned long long)__popc(want));
@@ -259,79 +312,104 @@ trace_lane8log_kernel(const float4* __restrict__ nodes8l,
           best_prim = -1;
           if (active[i]) {
             r = load_ray(o, d, tmin, i);
-            stack[0] = 0;
-            sp = 1;
+            cur = 0;
           } else {
-            sp = 0;
+            finish();
           }
         }
       }
     }
     if (!__any_sync(full, i < n)) break;
-    if (i >= 0 && i < n && sp > 0) {
-      const int ref = stack[--sp];
-      if (ref >= 0) {
-        const float4* nd = nodes8l + (int64_t)ref * (kNodeFloats / 4);
-        float box[48];
+
+    // the descent
+    while (cur >= 0) {
+      const float4* nd = nodes8l + (int64_t)cur * (kNodeFloats / 4);
+      float box[48];
 #pragma unroll
-        for (int j = 0; j < 12; ++j) {
-          const float4 q = __ldg(nd + j);
-          box[4 * j + 0] = q.x;
-          box[4 * j + 1] = q.y;
-          box[4 * j + 2] = q.z;
-          box[4 * j + 3] = q.w;
+      for (int j = 0; j < 12; ++j) {
+        const float4 q = __ldg(nd + j);
+        box[4 * j + 0] = q.x;
+        box[4 * j + 1] = q.y;
+        box[4 * j + 2] = q.z;
+        box[4 * j + 3] = q.w;
+      }
+      const float4 w = __ldg(nd + 12);
+      const int wa = __float_as_int(w.x);
+      const int base_leaf = __float_as_int(w.y);
+      const int base_int = wa & ((1 << 26) - 1);
+      const int n_int = wa >> 26;
+      unsigned key[8];
+      int n_hit = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float te;
+        const bool h = slab(box + 6 * c, r, best_t, te);
+        key[c] = h ? ((__float_as_uint(te) & ~7u) | (unsigned)c) : kMissKey;
+        n_hit += h;
+      }
+      if (n_hit == 0) {
+        pop();
+        continue;
+      }
+      cx(key, 0, 2); cx(key, 1, 3); cx(key, 4, 6); cx(key, 5, 7);
+      cx(key, 0, 4); cx(key, 1, 5); cx(key, 2, 6); cx(key, 3, 7);
+      cx(key, 0, 1); cx(key, 2, 3); cx(key, 4, 5); cx(key, 6, 7);
+      cx(key, 2, 4); cx(key, 3, 5); cx(key, 1, 4); cx(key, 3, 6);
+      cx(key, 1, 2); cx(key, 3, 4); cx(key, 5, 6);
+#pragma unroll
+      for (int c = 7; c >= 1; --c) {
+        if (c < n_hit) {
+          stack_ref[sp] = child_ref((int)(key[c] & 7u), base_int, n_int, base_leaf);
+          if (!kAnyHit) stack_t[kAnyHit ? 0 : sp] = __uint_as_float(key[c] & ~7u);
+          ++sp;
         }
-        const float4 w = __ldg(nd + 12);
-        const int wa = __float_as_int(w.x);
-        const int base_leaf = __float_as_int(w.y);
-        const int base_int = wa & ((1 << 26) - 1);
-        const int n_int = wa >> 26;
-        float key[8];
-        int refs[8];
+      }
+      cur = child_ref((int)(key[0] & 7u), base_int, n_int, base_leaf);
+    }
+    __syncwarp();
+
+    // the leaf
+    if (cur != kNone) {
+      const int row = -(cur + 1);
+      const float4* lr = leaf_rows8 + (int64_t)row * (kLeafFloats / 4);
+      const float* prims = reinterpret_cast<const float*>(lr) + 108;
+      const float4 meta = __ldg(lr + 30);   // floats 120..123: flag, count
+      const int cnt = (int)meta.y;
+      bool done = false;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          float te;
-          key[c] = slab(box + 6 * c, r, best_t, te) ? te : -1.0f;
-          refs[c] = child_ref(c, base_int, n_int, base_leaf);
-        }
-        // ascending sort; misses (key -1) come first
-        cx(key, refs, 0, 2); cx(key, refs, 1, 3); cx(key, refs, 4, 6);
-        cx(key, refs, 5, 7); cx(key, refs, 0, 4); cx(key, refs, 1, 5);
-        cx(key, refs, 2, 6); cx(key, refs, 3, 7); cx(key, refs, 0, 1);
-        cx(key, refs, 2, 3); cx(key, refs, 4, 5); cx(key, refs, 6, 7);
-        cx(key, refs, 2, 4); cx(key, refs, 3, 5); cx(key, refs, 1, 4);
-        cx(key, refs, 3, 6); cx(key, refs, 1, 2); cx(key, refs, 3, 4);
-        cx(key, refs, 5, 6);
+      for (int grp = 0; grp < kLeafTris / 4; ++grp) {
+        // the first group is loaded beside the count, not behind it
+        if (grp == 0 || (4 * grp < cnt && !done)) {
+          float f[36];
 #pragma unroll
-        for (int c = 7; c >= 0; --c) {
-          if (key[c] >= 0.0f) stack[sp++] = refs[c];
-        }
-      } else {
-        const float* lr = leaf_rows8 + (int64_t)(-(ref + 1)) * kLeafFloats;
-        const int cnt = (int)__ldg(lr + 121);
-        for (int k = 0; k < cnt; ++k) {
-          float tri[9];
+          for (int j = 0; j < 9; ++j) {
+            const float4 q = __ldg(lr + 9 * grp + j);
+            f[4 * j + 0] = q.x;
+            f[4 * j + 1] = q.y;
+            f[4 * j + 2] = q.z;
+            f[4 * j + 3] = q.w;
+          }
 #pragma unroll
-          for (int j = 0; j < 9; ++j) tri[j] = __ldg(lr + 9 * k + j);
-          float t, u, v;
-          int prim;
-          if (triangle(tri, lr + 108 + k, r, best_t, best_prim, t, u, v, prim)) {
-            best_t = t;
-            best_u = u;
-            best_v = v;
-            best_prim = prim;
-            if (kAnyHit) {
-              sp = 0;
-              break;
+          for (int k = 0; k < 4; ++k) {
+            float t, u, v;
+            int prim;
+            if (4 * grp + k < cnt && !done &&
+                triangle(f + 9 * k, prims + 4 * grp + k, r, best_t, best_prim,
+                         t, u, v, prim)) {
+              best_t = t;
+              best_u = u;
+              best_v = v;
+              best_prim = prim;
+              if (kAnyHit) done = true;
             }
           }
         }
       }
-    }
-    if (i >= 0 && i < n && sp == 0) {
-      write_hit(i, kAnyHit, best_prim, best_t, best_u, best_v,
-                t_out, prim_out, u_out, v_out);
-      i = -1;
+      if (done) {
+        finish();
+      } else {
+        pop();
+      }
     }
   }
 }
@@ -390,12 +468,12 @@ int hpt_trace_lane8log(const void* nodes8l, const void* leaf_rows8,
   cudaStream_t s = (cudaStream_t)stream;
   auto launch = [&](auto kernel) {
     int blocks = 0;
-    const int err = resident_blocks(kernel, 128, &blocks);
+    const int err = resident_blocks(kernel, kLaneThreads, &blocks);
     if (err != 0) return err;
-    const int64_t need = (n + 127) / 128;
+    const int64_t need = (n + kLaneThreads - 1) / kLaneThreads;
     if ((int64_t)blocks > need) blocks = (int)need;
-    kernel<<<blocks, 128, 0, s>>>(
-        (const float4*)nodes8l, (const float*)leaf_rows8, (const float*)o,
+    kernel<<<blocks, kLaneThreads, 0, s>>>(
+        (const float4*)nodes8l, (const float4*)leaf_rows8, (const float*)o,
         (const float*)d, (const float*)tmin, (const float*)tmax,
         (const uint8_t*)active, n, (unsigned long long*)counter, (float*)t,
         (int32_t*)prim, (float*)u, (float*)v);
@@ -403,6 +481,23 @@ int hpt_trace_lane8log(const void* nodes8l, const void* leaf_rows8,
   };
   return any_hit ? launch(trace_lane8log_kernel<true>)
                  : launch(trace_lane8log_kernel<false>);
+}
+
+// Registers per thread, local memory bytes per thread (the stack and any
+// spills) and resident blocks per SM of trace_lane8log, for the records.
+int hpt_trace_lane8log_info(int any_hit, int* regs, int* local_bytes,
+                            int* blocks_per_sm) {
+  auto info = [&](auto kernel) {
+    cudaFuncAttributes attr;
+    const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return (int)e;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, kLaneThreads, 0);
+  };
+  return any_hit ? info(trace_lane8log_kernel<true>)
+                 : info(trace_lane8log_kernel<false>);
 }
 
 }  // extern "C"

@@ -7,13 +7,21 @@ round of compiles builds every kernel of the port:
 
 - ``traverse.cu``: the BVH4 and meganode kernels (ops/cuda_traverse.py);
 - ``traverse8.cu``: the BVH8 kernels (ops/cuda_traverse.py);
-- ``probes.cu``: the gather probes (probes/r5probe2.py).
+- ``probes.cu``: the gather probes (probes/r5probe2.py); its P1 runs on
+  ``wgmma`` fed by TMA (``hopper_async.cuh``), whose tensor map libcuda
+  encodes: the source looks ``cuTensorMapEncodeTiled`` up with ``dlsym`` in
+  the libcuda the process has loaded, so only ``-ldl`` is linked.
 
 The traversal sources are built with ``-fmad=false`` so that their t is
 bit-identical to the plain walk's; the probes' arithmetic is integer or
 exact, so they are built without it. Each library's C functions get the
 signatures of ``SIGNATURES`` when it is loaded; every one returns the
-``cudaError_t`` of its launch as an int.
+``cudaError_t`` of its launch as an int. ``-Xptxas -v`` puts every kernel's
+registers, spills and shared memory into ``build_log``.
+
+``load_source`` builds and loads one more source the same way; a script
+uses it for a kernel that is not part of the package (an earlier version
+kept for a side-by-side timing).
 """
 
 from __future__ import annotations
@@ -30,11 +38,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _TRAVERSE_HEADER = os.path.join(CSRC, "traverse_common.cuh")
+_ASYNC_HEADER = os.path.join(CSRC, "hopper_async.cuh")
 # source name -> (extra nvcc flags, included headers)
 SOURCES = {
     "traverse": (["-fmad=false"], (_TRAVERSE_HEADER,)),
     "traverse8": (["-fmad=false"], (_TRAVERSE_HEADER,)),
-    "probes": ([], ()),
+    "probes": (["-ldl"], (_ASYNC_HEADER,)),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -47,17 +56,24 @@ def _trace(n_tables: int, counter: bool) -> list:
             + [_P] * (5 + int(counter)))
 
 
+MM_PROBE_ARGS = [_P, _P] + [_I] * 8 + [_P] * 3
+TRACE8_ARGS = _trace(2, True)
 # source name -> {C function: argument types}
 SIGNATURES = {
     "traverse": {"hpt_trace_coherent": _trace(2, False),
                  "hpt_trace_incoherent": _trace(2, False),
                  "hpt_trace_meganode": _trace(1, False)},
+    # *_info: any_hit or is_int8, then three int pointers (registers per
+    # thread, local or shared memory bytes, resident blocks per SM)
     "traverse8": {"hpt_trace_stream8": _trace(2, True),
-                  "hpt_trace_lane8log": _trace(2, True)},
+                  "hpt_trace_lane8log": _trace(2, True),
+                  "hpt_trace_lane8log_info": [_I, _P, _P, _P]},
     # mm: tab_t, idx, L, W, w_pad, l_pad, nl, rounds, groups, is_int8,
-    # partial, out, stream; dg: tab, idx, S, tiles, rounds, partial, out,
-    # stream
-    "probes": {"hpt_mm_probe": [_P, _P] + [_I] * 8 + [_P] * 3,
+    # partial, out, stream; mm_rows: the gathered rows of a block; dg: tab,
+    # idx, S, tiles, rounds, partial, out, stream
+    "probes": {"hpt_mm_probe": MM_PROBE_ARGS,
+               "hpt_mm_probe_rows": [],
+               "hpt_mm_probe_info": [_I, _P, _P, _P],
                "hpt_dg_probe": [_P, _P, _I, _I, _I, _P, _P, _P]},
 }
 
@@ -80,12 +96,25 @@ def _build(nvcc: str, name: str) -> tuple[str, str]:
                         f"lib{name}_sm90a.so", deps=deps)
 
 
-def _load(path: str, name: str) -> ctypes.CDLL:
+def _load(path: str, signatures: dict) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    for fn_name, argtypes in SIGNATURES[name].items():
+    for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
+
+
+def load_source(path: str, extra_flags: list,
+                signatures: dict) -> tuple[ctypes.CDLL, str]:
+    """Build the CUDA source at ``path`` (any directory; headers of csrc/
+    are on its include path) with the package's flags plus ``extra_flags``
+    and load it with ``signatures`` ({C function: argument types}, each
+    returning an int). Returns (the library, the compiler's output)."""
+    name = os.path.splitext(os.path.basename(path))[0]
+    lib_path, log = build_shared(
+        [_nvcc()] + BASE_FLAGS + ["-I", CSRC] + list(extra_flags), [path],
+        f"lib{name}_sm90a.so")
+    return _load(lib_path, signatures), log
 
 
 def load_libraries() -> dict:
@@ -101,7 +130,7 @@ def load_libraries() -> dict:
                     lambda name: _build(nvcc, name), SOURCES)))
             build_log = "\n".join(log for _path, log in built.values())
             for name, (path, _log) in built.items():
-                _libs[name] = _load(path, name)
+                _libs[name] = _load(path, SIGNATURES[name])
         return _libs
 
 

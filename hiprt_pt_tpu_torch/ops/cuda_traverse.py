@@ -11,7 +11,10 @@ wrappers — the counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
   ``leaf_rows8``), persistent blocks refilled from a global packet counter;
   replaces ``_kernel_stream8l`` (K4).
 - ``trace_lane8log``: one persistent thread per ray over the BVH8, refilled
-  from a global ray counter; replaces ``_kernel_lane8log`` (K5).
+  from a global ray counter, as a while-while walk (the warp descends
+  together, then tests leaves together; the nearest child stays in a
+  register, a pop skips entries the ray has passed, leaves are read with
+  16-byte loads); replaces ``_kernel_lane8log`` (K5).
 
 Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
@@ -138,8 +141,8 @@ def trace_stream8(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
 
 def trace_lane8log(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                    any_hit: bool = False) -> HitRecord:
-    """Per-ray BVH8 walk in persistent threads with a ray-pool refill (K5
-    port). Needs ``bvh.nodes8l``."""
+    """Per-ray BVH8 while-while walk in persistent threads with a ray-pool
+    refill (K5 port). Needs ``bvh.nodes8l``."""
     if o.device.type == "cpu":
         return plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit)
     return _launch("trace_lane8log", bvh, o, d, t_min, t_max, active, any_hit)

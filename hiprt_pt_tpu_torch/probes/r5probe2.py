@@ -5,8 +5,10 @@ leaf rows? The port of ``benchmarks/r5probe2.py``.
     python -m hiprt_pt_tpu_torch.probes.r5probe2 --device cpu --shapes tiny
 
 - Q1, P1 ``mm_probe_kernel`` (csrc/probes.cu; replaces ``_mm_kernel``):
-  rows gathered by a one-hot matrix product on the tensor cores, the
-  maximum of each gathered row, summed over the rows and the rounds:
+  rows gathered by a one-hot matrix product on the tensor cores (``wgmma``,
+  the one-hot operand built in registers, the table streamed through
+  shared memory by TMA), the maximum of each gathered row, summed over the
+  rows and the rounds:
   ``sum_r sum_j max_w tab[(idx[r % 8, j] + r) mod L, w]``. Five
   configurations: the stress interior's leaf table (L = 2731 rows) at the
   16-, 12- and 8-bit leaf widths, per group of 512 columns or fused, int8
@@ -53,9 +55,9 @@ W8 = -(-(9 * TC + 16) // 8) * 8        # 1168
 L_STRESS = 2731
 ROUNDS = 32
 DG_LANES = 128
-# P1: a warp's columns; the K and M of the padded operand (csrc/probes.cu);
-# the table types its kernel takes
-MM_COLS, MM_K_PAD, MM_M_PAD = 64, 32, 16
+# P1: the padded operand's columns (of L) and rows (of W) are multiples of
+# these; the table types its kernel takes
+MM_K_PAD, MM_M_PAD = 32, 16
 MM_DTYPES = (torch.int8, torch.bfloat16)
 # (label, L, W, NL, dtype, groups): Q1 of r5probe2.py:191-196
 MM_CONFIGS = (
@@ -194,8 +196,13 @@ def dg_probe_plain(tab, idx, rounds: int):
 @dataclasses.dataclass
 class MMTable:
     """P1's table, with the operand its kernel reads: ``tab_t``, the table
-    transposed to (W, L), zero-padded to a multiple of 16 rows and 32
-    columns. Made once by ``mm_table``: set-up, outside any timed call."""
+    transposed to (W, L), L contiguous (the K-major B operand of ``wgmma``),
+    zero-padded to a multiple of 16 rows and 32 columns, which makes a row
+    a multiple of the 16 bytes a TMA tensor map's stride must be. The
+    kernel's tiles need no further padding: the tensor map ends at W rows
+    and the padded columns, and TMA fills what a tile reaches past them
+    with zeros. Made once by ``mm_table``: set-up, outside any timed
+    call."""
     tab: torch.Tensor
     tab_t: torch.Tensor
 
@@ -217,7 +224,8 @@ def mm_table(tab) -> MMTable:
 
 def mm_probe_kernel(table: MMTable, idx, rounds: int, groups: int = 1):
     """P1 (the port of _mm_kernel): on CUDA the one-hot product on the
-    tensor cores (csrc/probes.cu), a (1, 1) float32 tensor; on the CPU
+    tensor cores, ``wgmma`` on table tiles that TMA streams through shared
+    memory (csrc/probes.cu), a (1, 1) float32 tensor; on the CPU
     ``mm_probe_plain``."""
     tab = table.tab
     if tab.device.type == "cpu":
@@ -232,10 +240,12 @@ def mm_probe_kernel(table: MMTable, idx, rounds: int, groups: int = 1):
     _check_rounds(rounds)
     if groups < 1 or NL % groups:
         raise ValueError(f"NL = {NL} is not a multiple of groups = {groups}")
-    n_wtiles = groups * -(-(NL // groups) // MM_COLS)
-    partial = torch.empty((rounds * n_wtiles,), dtype=torch.float32, device=dev)
-    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     lib = cuda_build.load_libraries()["probes"]
+    # one partial sum per block: a block takes hpt_mm_probe_rows() gathered
+    # rows of one group and one round
+    n_blocks = groups * -(-(NL // groups) // lib.hpt_mm_probe_rows())
+    partial = torch.empty((rounds * n_blocks,), dtype=torch.float32, device=dev)
+    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     w_pad, l_pad = table.tab_t.shape
     with torch.cuda.device(dev):
         err = lib.hpt_mm_probe(
@@ -243,8 +253,13 @@ def mm_probe_kernel(table: MMTable, idx, rounds: int, groups: int = 1):
             rounds, groups, int(table.tab_t.dtype == torch.int8),
             partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
+    if err > 0:
         raise RuntimeError(f"mm_probe_kernel launch failed: cudaError {err}")
+    if err < 0:
+        raise RuntimeError(
+            "mm_probe_kernel: libcuda's tensor-map encoder "
+            + ("is missing" if err == -1 else
+               f"refused the table: CUresult {-err - 100}"))
     launch_counts["mm_probe_kernel"] += 1
     return out
 

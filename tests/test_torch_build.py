@@ -1,0 +1,67 @@
+"""The build table of the port's CUDA sources (ops/cuda_build.py) against
+the sources themselves, on the host: no compiler runs here."""
+
+import os
+import re
+
+import pytest
+
+from hiprt_pt_tpu_torch.ops import cuda_build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _source(name: str) -> str:
+    with open(os.path.join(cuda_build.CSRC, name + ".cu")) as f:
+        return f.read()
+
+
+def _c_functions(text: str) -> dict:
+    """{name: number of parameters} of the C functions a source defines
+    (``int hpt_...(...) {``)."""
+    out = {}
+    for m in re.finditer(r"\bint (hpt_\w+)\(([^)]*)\)\s*\{", text):
+        params = m.group(2).strip()
+        out[m.group(1)] = 0 if not params else params.count(",") + 1
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build.SOURCES))
+def test_signatures_match_the_source(name):
+    """Every C function of a source has a signature with as many arguments
+    as the source's definition has parameters, and no signature names a
+    function the source lacks."""
+    defined = _c_functions(_source(name))
+    assert set(cuda_build.SIGNATURES[name]) == set(defined)
+    for fn, argtypes in cuda_build.SIGNATURES[name].items():
+        assert len(argtypes) == defined[fn], fn
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build.SOURCES))
+def test_headers_are_named_as_dependencies(name):
+    """A source's quoted includes are exactly the headers whose change
+    rebuilds it."""
+    included = set(re.findall(r'#include "([^"]+)"', _source(name)))
+    _flags, deps = cuda_build.SOURCES[name]
+    assert included == {os.path.basename(d) for d in deps}
+    assert all(os.path.exists(d) for d in deps)
+
+
+@pytest.mark.parametrize("name,flag", [("traverse", True), ("traverse8", True),
+                                       ("probes", False)])
+def test_only_the_traversal_sources_forbid_fused_multiply_add(name, flag):
+    assert ("-fmad=false" in cuda_build.SOURCES[name][0]) is flag
+
+
+def test_previous_kernels_stay_out_of_the_package():
+    """The earlier versions kept for side-by-side timings are no source of
+    the package, and define other C names than the package's kernels."""
+    prev = os.path.join(REPO, "previous_kernels")
+    names = {f for f in os.listdir(prev) if f.endswith(".cu")}
+    assert names == {"mm_probe_mma_sync.cu", "trace_lane8log_step.cu"}
+    package = {fn for sig in cuda_build.SIGNATURES.values() for fn in sig}
+    for f in names:
+        with open(os.path.join(prev, f)) as fh:
+            defined = _c_functions(fh.read())
+        assert defined and not set(defined) & package
+        assert all(fn.startswith("hpt_prev_") for fn in defined)

@@ -217,3 +217,94 @@ def test_probe_kernels_match_plain(case):
     assert probes.launch_counts[kernel] == before + 1
     assert got.dtype == torch.float32 and got.shape == (1, 1) and got.is_cuda
     assert float(got) == float(want)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+@pytest.mark.parametrize("shape", [(300, 100, 200), (129, 65, 1048),
+                                   (2731, 333, 1096)],
+                         ids=["L300-W100-NL200", "L129-W65-NL1048",
+                              "L2731-W333-NL1096"])
+def test_mm_probe_kernel_off_the_tile(shape, dtype, groups):
+    """The wgmma version of mm_probe_kernel (P1) equals mm_probe_plain
+    exactly (integer tables, every sum below 2^24) at shapes that are no
+    multiple of its tile: W off the 128 table rows of a tile and the 16 of
+    the padding, L off the 128 bytes of a stage and the 32 columns of the
+    padding, NL / groups off the 256 gathered rows of a block (25, 131 and
+    137 at 8 groups, 1,048 and 1,096 fused), so that blocks hold masked
+    rows, the last tile masked table rows and the last stage zero fill. Two
+    runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.probes import r5probe2 as probes
+
+    L, W, NL = shape
+    dev = torch.device("cuda:0")
+    tab, idx = probes.mm_gate_inputs(L, W, NL, dtype, seed=7, device=dev)
+    table = probes.mm_table(tab)
+    before = probes.launch_counts["mm_probe_kernel"]
+    got = probes.mm_probe_kernel(table, idx, 5, groups)
+    again = probes.mm_probe_kernel(table, idx, 5, groups)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["mm_probe_kernel"] == before + 2
+    assert float(got) == float(probes.mm_probe_plain(tab, idx, 5, groups))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n", [16389, 77, 1])
+def test_lane8log_ragged_counts(gpu_scene, n, any_hit):
+    """trace_lane8log (K5 port) against traverse8 on ray counts that are no
+    multiple of its 128-thread blocks or of a warp, with finite t_max and
+    inactive rays: prim agreement >= 0.9999 (any-hit: occlusion), t within
+    rtol 1e-5 where the prims agree, inactive rays all misses."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    _, _, bvh, dev = gpu_scene
+    o, d, t_max, active = _rays(dev, n=n, seed=3)
+    rk = ct.trace_lane8log(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    rp = plain.traverse8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
+    act = active.cpu().numpy()
+    assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    if any_hit:
+        assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
+        assert not rk.u.any() and not rk.v.any()
+    else:
+        assert np.mean(pk == pp) >= 0.9999
+        m = (pk == pp) & (pk >= 0)
+        np.testing.assert_allclose(rk.t.cpu().numpy()[m], rp.t.cpu().numpy()[m],
+                                   rtol=1e-5)
+
+
+def test_lane8log_tiny_negative_direction_components():
+    """Rays straight down onto a quad with x and z components of -1e-13,
+    +1e-13, -0 and +0 (tests/test_torch_meganode.py): trace_lane8log hits
+    what brute force hits, at t = 1 (rtol 1e-6), and reports occlusion."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest
+
+    comps = [-1e-13, 1e-13, -0.0, 0.0]
+    d = np.asarray([[cx, -1.0, cz] for cx in comps for cz in comps], np.float32)
+    o = np.tile(np.asarray([[0.1, 1.0, 0.2]], np.float32), (len(d), 1))
+    verts = np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
+    tris = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    dev = torch.device("cuda:0")
+    bvh = build_bvh(verts, tris, dev, all_tables=True)
+    o_t, d_t = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    bt, bp, _, _ = brute_force_closest(
+        torch.from_numpy(verts).to(dev), torch.from_numpy(tris).to(dev), o_t, d_t,
+        t_min=0.0)
+    rec = ct.trace_lane8log(bvh, o_t, d_t, 0.0)
+    torch.cuda.synchronize()
+    assert np.all(bp.cpu().numpy() >= 0)
+    assert np.array_equal(rec.prim.cpu().numpy(), bp.cpu().numpy())
+    np.testing.assert_allclose(rec.t.cpu().numpy(), bt.cpu().numpy(), rtol=1e-6)
+    occ = ct.trace_lane8log(bvh, o_t, d_t, 1e-4, 2.0, any_hit=True)
+    assert (occ.prim >= 0).all()

@@ -161,6 +161,37 @@ def test_mm_table_is_the_padded_transpose():
     assert not t[MM_W:].any() and not t[:, MM_L:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+@pytest.mark.parametrize("L,W", [(300, 100), (129, 65), (2731, 333), (32, 16),
+                                 (33, 17)])
+def test_mm_table_off_the_tile(L, W, dtype):
+    """The operand of P1's kernel for L and W off its tiles (128 table rows,
+    128 bytes of L a stage) and off the padding: exactly tab.t() in its
+    corner, zero elsewhere, contiguous, padded to the next multiple of 16
+    rows and 32 columns and no further, every row a multiple of the 16
+    bytes that a TMA tensor map's stride must be. Exact."""
+    tab, _ = probes.mm_gate_inputs(L, W, 8, dtype, seed=9, device="cpu")
+    table = probes.mm_table(tab)
+    t = table.tab_t
+    assert table.tab is tab and t.dtype == dtype and t.is_contiguous()
+    assert t.shape == (-(-W // 16) * 16, -(-L // 32) * 32)
+    assert t.shape[0] - W < 16 and t.shape[1] - L < 32
+    assert (t.stride(0) * t.element_size()) % 16 == 0
+    assert torch.equal(t[:W, :L], tab.t())
+    assert not t[W:].any() and not t[:, L:].any()
+
+
+def test_mm_table_refuses_what_the_kernel_does_not_take():
+    tab, _ = probes.mm_gate_inputs(40, 24, 8, torch.int8, seed=9, device="cpu")
+    with pytest.raises(TypeError):
+        probes.mm_table(tab.float())
+    with pytest.raises(ValueError, match="2-D"):
+        probes.mm_table(tab[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.mm_table(tab.t())
+
+
 def test_main_runs_on_the_cpu():
     """The entry point at tiny shapes on the host: the plain versions, no
     times; each line's value is the plain version's on the probe's inputs."""
