@@ -7,13 +7,15 @@ Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
                 source: the five traversal kernels and the two probes), the
-                two earlier kernel versions of previous_kernels/ (outside
+                four earlier kernel versions of previous_kernels/ (outside
                 the package, built only to be timed beside the versions
                 that replaced them) and the BVH build library (g++); print
-                what ptxas says of every kernel, and the registers per
-                thread and resident blocks per SM of mm_probe_kernel and
-                trace_lane8log in both versions.
-  Then, for each of the three paths of hiprt_pt_tpu_torch/paths.py:
+                what ptxas says of every kernel (a spill in trace_incoherent
+                or trace_meganode fails the phase), and the registers per
+                thread and resident blocks per SM of mm_probe_kernel,
+                trace_lane8log, trace_incoherent and trace_meganode in both
+                versions.
+  Then, for each of the four paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
                 which must be the path's routes (paths.ROUTES).
@@ -28,8 +30,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 1,024 camera or bounce rays also against brute force; then
                 the kernel's and the plain version's time and the kernel's
                 bound on each (kernel, ray kind) at 1080p; for
-                trace_lane8log also the earlier version's time on the same
-                rays, in turns with the new one.
+                trace_lane8log, trace_incoherent and trace_meganode also
+                the earlier version (held against the plain version too)
+                timed on the same rays, in turns with the new one.
   5. slice    — the renderer at 1920x1080, 4 bounces, with the path's
                 options (paths.slice_options): one warm-up frame and 4
                 timed frames. Launch counts are reset just before and read
@@ -37,11 +40,18 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 as many times per frame and ray kind as render/integrator.py
                 issues them.
   6. parity   — one sample at 256x128 rendered on the GPU and on the CPU
-                (plain traversal), compared per pixel.
+                (plain traversal), compared per pixel; on the headline path
+                also on the GPU with use_pallas_traversal off (the plain
+                walks on the card, which must launch no kernel), compared
+                with both.
   The paths: the stress interior (259,120 triangles; trace_coherent,
   trace_incoherent), the Cornell box with seven principled spheres (35,852
-  triangles; trace_meganode) and the stress interior at tri_scale=14
-  (2,042,048 triangles, textures, RIS; trace_stream8, trace_lane8log).
+  triangles; trace_meganode), the stress interior at tri_scale=14
+  (2,042,048 triangles, textures, RIS; trace_stream8, trace_lane8log) and
+  the headline configuration of bench.py (the stress interior at
+  tri_scale=1 with textures, the principled BSDF and RIS; trace_coherent,
+  trace_incoherent; its geometry is the stress path's, so its kernel phase
+  holds only the ray kind that is new, RIS's tile-shared shadow rays).
   7. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
                 r5probe2.py), a path with no frame: its entry point main()
                 at the TPU probe's shapes with the launch counts reset just
@@ -72,6 +82,8 @@ import numpy as np
 import torch
 
 from hiprt_pt_tpu_torch.core.device import cuda_ms
+# each traversal kernel's tables and its plain PyTorch version (ops/traverse.py)
+from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES, PLAIN_WALKS as PLAIN
 
 WIDTH, HEIGHT = 1920, 1080
 PARITY_RAYS = 65536
@@ -98,10 +110,6 @@ SOURCE = {k: "hiprt_pt_tpu_torch/csrc/traverse.cu" for k in KERNELS} | {
     "trace_lane8log": "hiprt_pt_tpu_torch/csrc/traverse8.cu",
     "mm_probe_kernel": "hiprt_pt_tpu_torch/csrc/probes.cu",
     "dg_probe_kernel": "hiprt_pt_tpu_torch/csrc/probes.cu"}
-# the plain PyTorch version of each traversal kernel (ops/traverse.py)
-PLAIN = {"trace_coherent": "traverse", "trace_incoherent": "traverse",
-         "trace_meganode": "traverse_meganode", "trace_stream8": "traverse8",
-         "trace_lane8log": "traverse8"}
 # the (kernel, ray kind) pairs each path holds against the plain version,
 # times and bounds: every kind the path sends each kernel, and on the
 # 2.04M-triangle path the kinds it does not (K4 on bounce rays, K5 on
@@ -112,11 +120,16 @@ CORNELL_CASES = tuple(("trace_meganode", kind)
                       for kind in ("camera", "bounce", "shadow"))
 STRESS14_CASES = tuple((k, kind) for k in ("trace_stream8", "trace_lane8log")
                        for kind in ("camera", "bounce", "shadow"))
-# the rays of its path whose ms and bound a kernel's entry in the kernels
+HEADLINE_CASES = (("trace_coherent", "shadow"), ("trace_incoherent", "shadow"))
+PATH_CASES = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
+              ("stress14", STRESS14_CASES), ("headline", HEADLINE_CASES))
+# the (path, ray kind) whose ms and bound a kernel's entry in the kernels
 # line reports
-SERVES = {"trace_coherent": "camera", "trace_incoherent": "bounce",
-          "trace_meganode": "camera", "trace_stream8": "camera",
-          "trace_lane8log": "bounce"}
+SERVES = {"trace_coherent": ("stress", "camera"),
+          "trace_incoherent": ("stress", "bounce"),
+          "trace_meganode": ("cornell", "camera"),
+          "trace_stream8": ("stress14", "camera"),
+          "trace_lane8log": ("stress14", "bounce")}
 # a kernel's bound (H100 SXM peak rates): f32
 # operations of the plain walk on the rays over the f32 rate, and bytes
 # (each ray in once: o, d, t_min, t_max, active = 33 B; each hit record out
@@ -131,6 +144,9 @@ RAY_BYTES, HIT_BYTES = 33, 16
 SLAB_OPS, TRI_OPS = 25, 53
 # the slice's frames that launch counts cover: a warm-up and 4 timed
 SLICE_FRAMES = 5
+# launches behind the warm-up in one timing of a traversal kernel (several
+# take a third of a millisecond a launch)
+KERNEL_REPS = 10
 # probes: the rounds of P2's exact gate on integer tables (every partial
 # sum stays below 2^24: 4 rounds x 19 tiles x 128 lanes x 1000 < 2^24; P1's
 # gate runs the probe's 32 rounds, 127 x 4096 x 32 < 2^24); the float
@@ -144,11 +160,19 @@ P1_LINE, P2_LINE_TILES = "per-group(now)", 19
 # gathered rows a block): (L, W, NL), each at int8 and bf16, 1, 2 and 8 groups
 P1_OFF_TILE = ((300, 100, 200), (129, 65, 1048), (2731, 333, 1096))
 P1_OFF_TILE_ROUNDS = 5
-# the earlier versions of mm_probe_kernel and trace_lane8log, kept outside
-# the package for the side-by-side timing: source -> extra nvcc flags; their
-# libraries, once phase_build has loaded them
-PREVIOUS = {"mm_probe_mma_sync": [], "trace_lane8log_step": ["-fmad=false"]}
+# the earlier versions of the redesigned kernels, kept outside the package
+# for the side-by-side timing: source -> extra nvcc flags; their libraries,
+# once phase_build has loaded them
+PREVIOUS = {"mm_probe_mma_sync": [], "trace_lane8log_step": ["-fmad=false"],
+            "trace_incoherent_step": ["-fmad=false"],
+            "trace_meganode_packet": ["-fmad=false"]}
 _previous = {}
+# traversal kernel -> (its earlier version's source, the package source of
+# the new version, whether the earlier version takes a scratch counter); the
+# C functions are hpt_prev_<kernel>[_info]
+EARLIER = {"trace_lane8log": ("trace_lane8log_step", "traverse8", True),
+           "trace_incoherent": ("trace_incoherent_step", "traverse", False),
+           "trace_meganode": ("trace_meganode_packet", "traverse", False)}
 
 
 def log(*a):
@@ -182,9 +206,8 @@ def _kernel_info(fn, flag):
 
 def phase_build():
     """Build every source at once; returns {kernel: {version: {mode:
-    (registers, memory bytes, blocks per SM)}}} of the two redesigned
+    (registers, memory bytes, blocks per SM)}}} of the redesigned
     kernels."""
-    import ctypes
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -192,12 +215,13 @@ def phase_build():
     from hiprt_pt_tpu_torch.ops import cuda_build
 
     here = os.path.dirname(os.path.abspath(__file__))
-    info_args = [ctypes.c_int] + [ctypes.c_void_p] * 3
     signatures = {
         "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS,
-                              "hpt_prev_mm_probe_info": info_args},
-        "trace_lane8log_step": {"hpt_prev_trace_lane8log": cuda_build.TRACE8_ARGS,
-                                "hpt_prev_trace_lane8log_info": info_args}}
+                              "hpt_prev_mm_probe_info": cuda_build.INFO_ARGS}}
+    for k, (source, _package, counter) in EARLIER.items():
+        signatures[source] = {
+            "hpt_prev_" + k: cuda_build.trace_args(len(KERNEL_TABLES[k]), counter),
+            f"hpt_prev_{k}_info": cuda_build.INFO_ARGS}
 
     def previous(name):
         return cuda_build.load_source(
@@ -220,15 +244,18 @@ def phase_build():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "warning" in line or "(C7" in line):
             log("[build] ptxas:", line.strip().replace("ptxas info    : ", ""))
+    check_no_spill(cuda_build.build_log,
+                   ("trace_incoherent_kernel", "trace_meganode_kernel"))
     log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
         f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
         f"library {t2 - t1:.2f} s")
     fns = {"mm_probe_kernel": (libs["probes"].hpt_mm_probe_info,
                                _previous["mm_probe_mma_sync"].hpt_prev_mm_probe_info,
-                               (("int8", 1), ("bf16", 0)), "shared"),
-           "trace_lane8log": (libs["traverse8"].hpt_trace_lane8log_info,
-                              _previous["trace_lane8log_step"].hpt_prev_trace_lane8log_info,
-                              (("closest", 0), ("any-hit", 1)), "local")}
+                               (("int8", 1), ("bf16", 0)), "shared")}
+    for k, (source, package, _counter) in EARLIER.items():
+        fns[k] = (getattr(libs[package], f"hpt_{k}_info"),
+                  getattr(_previous[source], f"hpt_prev_{k}_info"),
+                  (("closest", 0), ("any-hit", 1)), "local")
     info = {}
     for k, (new_fn, prev_fn, flags, mem) in fns.items():
         info[k] = {ver: {mode: _kernel_info(fn, flag) for mode, flag in flags}
@@ -261,25 +288,44 @@ def previous_mm_probe(table, idx, rounds, groups):
     return out
 
 
-def previous_lane8log(bvh, o, d, t_min, t_max, active, any_hit=False):
-    """The earlier trace_lane8log (previous_kernels/trace_lane8log_step.cu)
-    with the wrapper's arguments."""
+def previous_trace(kname, bvh, o, d, t_min, t_max, active, any_hit=False):
+    """The earlier version of the traversal kernel ``kname``
+    (previous_kernels/, EARLIER) with the wrapper's arguments."""
     from hiprt_pt_tpu_torch.ops.traverse import HitRecord, per_ray
 
+    source, _package, takes_counter = EARLIER[kname]
     n, dev = o.shape[0], o.device
     tmin, tmax = per_ray(t_min, n, dev), per_ray(t_max, n, dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
-    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
-    err = _previous["trace_lane8log_step"].hpt_prev_trace_lane8log(
-        bvh.nodes8l.data_ptr(), bvh.leaf_rows8.data_ptr(), o.data_ptr(),
-        d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), active.data_ptr(), n,
-        int(any_hit), counter.data_ptr(), t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    counter = ((torch.zeros((1,), dtype=torch.int64, device=dev),)
+               if takes_counter else ())
+    err = getattr(_previous[source], "hpt_prev_" + kname)(
+        *(getattr(bvh, tab).data_ptr() for tab in KERNEL_TABLES[kname]),
+        o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+        active.data_ptr(), n, int(any_hit), *(c.data_ptr() for c in counter),
+        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"the earlier trace_lane8log failed: cudaError {err}")
+        raise RuntimeError(f"the earlier {kname} failed: cudaError {err}")
     return HitRecord(t=t, prim=prim, u=u, v=v)
+
+
+def check_no_spill(build_log, kernels):
+    """Raise if ptxas reports spill stores or loads for an entry function
+    whose name holds one of ``kernels``."""
+    import re
+
+    entry = ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and any(k in entry for k in kernels) and (int(m.group(1))
+                                                       or int(m.group(2))):
+            raise AssertionError(f"ptxas spills in {entry}: {line.strip()}")
 
 
 def phase_scene(tag, dev):
@@ -304,7 +350,8 @@ def phase_scene(tag, dev):
         f"{bvh.depth8}, depth2 {bvh.depth2}, lane8 {bvh.lane8}; routes: "
         f"coherent {routes[0]}, incoherent {routes[1]}")
     expect = {"stress": (259_120, 240, 0), "cornell": (35_852, 2, 0),
-              "stress14": (2_042_048, 240, 18)}[tag]
+              "stress14": (2_042_048, 240, 18),
+              "headline": (259_120, 240, 18)}[tag]
     got = (scene.num_triangles, scene.num_emissives,
            0 if tex is None else tex.num_layers)
     if got != expect:
@@ -430,8 +477,6 @@ def compare(name, rk, rp, any_hit, active):
 def bound(bvh, kernel, n, stats):
     """(ms, "bytes" or "operations"): the least time the card could take for
     the plain walk's work on n rays (see F32_OPS_PER_S above)."""
-    from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES
-
     ops = stats["box_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS
     nbytes = n * (RAY_BYTES + HIT_BYTES) + sum(
         getattr(bvh, t).numel() * 4 for t in KERNEL_TABLES[kernel])
@@ -458,8 +503,8 @@ def modes(kind):
 def phase_kernels(tag, scene, cam, bvh, dev, cases):
     """Each (kernel, ray kind) of ``cases`` against the kernel's plain
     version and brute force, then both timed on the 1080p wavefront, with
-    the kernel's bound there. Returns ({kernel: max |dt|}, {(kernel, kind):
-    row}); a row holds the kernel's and the plain version's ms in the
+    the kernel's bound there. Returns ({kernel: max |dt|}, {(path, kernel,
+    kind): row}); a row holds the kernel's and the plain version's ms in the
     kind's mode (closest for camera and bounce rays, any-hit for shadow
     rays), the any-hit ms, and the bound on those rays in that mode."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
@@ -531,7 +576,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
         for any_hit in modes(kind):
             t_min = 1e-4 if any_hit else 0.0
             k_ms, rk = cuda_ms(lambda: kern(bvh, o, d, t_min, t_max, a,
-                                            any_hit=any_hit), reps=5)
+                                            any_hit=any_hit), reps=KERNEL_REPS)
             key = (PLAIN[kname], kind, any_hit)
             if key not in plain_ms:
                 plain_ms[key] = cuda_ms(lambda: walk(
@@ -542,13 +587,14 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             mode = "any" if any_hit else "closest"
             row[f"{mode}_ms"], row[f"{mode}_plain_ms"] = k_ms, p_ms
             before = ""
-            if kname == "trace_lane8log":
+            if kname in EARLIER:
                 # the earlier version on the same rays, then the new again
-                v_ms, rv = cuda_ms(lambda: previous_lane8log(
-                    bvh, o, d, t_min, t_max, a, any_hit=any_hit), reps=5)
+                v_ms, rv = cuda_ms(lambda: previous_trace(
+                    kname, bvh, o, d, t_min, t_max, a, any_hit=any_hit),
+                    reps=KERNEL_REPS)
                 compare(tag_ + " earlier version", rv, rp, any_hit, a)
                 k2_ms = cuda_ms(lambda: kern(bvh, o, d, t_min, t_max, a,
-                                             any_hit=any_hit), reps=5)[0]
+                                             any_hit=any_hit), reps=KERNEL_REPS)[0]
                 row[f"{mode}_prev_ms"], row[f"{mode}_ms_again"] = v_ms, k2_ms
                 before = (f", earlier version {v_ms:.3f} ms, kernel again "
                           f"{k2_ms:.3f} ms")
@@ -561,21 +607,21 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
         walk(bvh, o, d, 1e-4 if kind == "shadow" else 0.0, t_max, a,
              any_hit=kind == "shadow", stats=stats)
         b_ms, b_by = bound(bvh, kname, o.shape[0], stats)
-        rows[(kname, kind)] = {
+        rows[(tag, kname, kind)] = {
             "path": tag, "mode": mode, "ms": row[f"{mode}_ms"],
             "plain_ms": row[f"{mode}_plain_ms"], "any_ms": row["any_ms"],
             "bound_ms": b_ms, "bound_by": b_by}
         if f"{mode}_prev_ms" in row:
-            rows[(kname, kind)] |= {"prev_ms": row[f"{mode}_prev_ms"],
-                                    "any_prev_ms": row["any_prev_ms"],
-                                    "ms_again": row[f"{mode}_ms_again"]}
+            rows[(tag, kname, kind)] |= {"prev_ms": row[f"{mode}_prev_ms"],
+                                         "any_prev_ms": row["any_prev_ms"],
+                                         "ms_again": row[f"{mode}_ms_again"]}
         log(f"[kernels] {kname} bound on {o.shape[0]} {kind} rays ({mode}): "
             f"{b_ms:.4f} ms ({b_by}); plain walk {stats}")
     return errs, rows
 
 
 def launches_per_frame(tag, scene):
-    """{(kernel, ray kind): launches per frame} of a path's slice, as
+    """{(path, kernel, ray kind): launches per frame} of a path's slice, as
     render/integrator.py issues them when every bounce has a live ray:
     camera_rays_pass traces the camera rays once (coherent route); each of
     the nb_bounces bounces of render_sample traces number_of_light_samples
@@ -598,10 +644,10 @@ def launches_per_frame(tag, scene):
     bounces = min(opts.max_bounces_static, int(settings.nb_bounces))
     n_ls = max(int(settings.number_of_light_samples), 1)
     out = {}
-    for key, n in (((coherent, "camera"), 1), ((coherent, "shadow"), n_ls),
-                   ((incoherent, "shadow"), (bounces - 1) * n_ls),
-                   ((incoherent, "bounce"), bounces)):
-        out[key] = out.get(key, 0) + n
+    for kernel, kind, n in ((coherent, "camera", 1), (coherent, "shadow", n_ls),
+                            (incoherent, "shadow", (bounces - 1) * n_ls),
+                            (incoherent, "bounce", bounces)):
+        out[(tag, kernel, kind)] = out.get((tag, kernel, kind), 0) + n
     return out
 
 
@@ -649,7 +695,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
             raise AssertionError(
                 f"{k} was launched {v} times by the {tag} path, which should "
                 f"launch exactly {sorted(kernels)}")
-        want = SLICE_FRAMES * sum(n for (kk, _), n in per_kind.items() if kk == k)
+        want = SLICE_FRAMES * sum(n for (_, kk, _), n in per_kind.items() if kk == k)
         if v != want:
             raise AssertionError(f"{k} was launched {v} times in {SLICE_FRAMES} "
                                  f"frames of the {tag} path; its ray kinds "
@@ -661,32 +707,51 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     return launches, per_kind
 
 
-def phase_parity(tag, scene, cam, bvh):
+def images_agree(tag, what, got, ref, rays_got, rays_ref):
+    """Hold one 256x128 render against another (PIX_* above); raises."""
+    close = np.all(np.abs(got - ref) <= PIX_ATOL + PIX_RTOL * np.abs(ref), axis=-1)
+    frac = float(close.mean())
+    mean_rel = abs(float(got.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-12)
+    rays_rel = abs(rays_got - rays_ref) / max(rays_ref, 1)
+    log(f"[{tag} parity] {what}: {frac:.5f} of pixels close, image mean rel "
+        f"diff {mean_rel:.2e}, rays {rays_got} vs {rays_ref}")
+    if frac < PIX_FRAC or mean_rel > 0.01 or rays_rel > 0.005:
+        raise AssertionError(f"{tag}: {what}: the renders disagree")
+
+
+def phase_parity(tag, scene, cam, bvh, plain_on_gpu=False):
+    """One sample at 256x128 on the GPU (kernels) and on the CPU (plain
+    walks); with ``plain_on_gpu`` also on the GPU with
+    use_pallas_traversal off, which must launch no kernel."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
     opts, settings, world = slice_options(tag)
     w, h = 256, 128
     cpu = torch.device("cpu")
-    scene_cpu = scene.to(cpu)
-    imgs, rays = [], []
     t0 = time.perf_counter()
-    for sc, c, b in ((scene, cam, bvh), (scene_cpu, cam.to(cpu), bvh.to(cpu))):
-        r = Renderer(sc, c, w, h, options=opts, settings=settings, world=world,
-                     bvh=b, seed=42)
+
+    def render(sc, c, b, options):
+        r = Renderer(sc, c, w, h, options=options, settings=settings,
+                     world=world, bvh=b, seed=42)
         r.step()
-        imgs.append(r.hdr_image())
-        rays.append(r.rays_traced)
-    gpu, ref = imgs
-    close = np.all(np.abs(gpu - ref) <= PIX_ATOL + PIX_RTOL * np.abs(ref), axis=-1)
-    frac = float(close.mean())
-    mean_rel = abs(float(gpu.mean()) - float(ref.mean())) / max(float(ref.mean()), 1e-12)
-    rays_rel = abs(rays[0] - rays[1]) / max(rays[1], 1)
-    log(f"[{tag} parity] {w}x{h} GPU vs CPU: {frac:.5f} of pixels close, "
-        f"image mean rel diff {mean_rel:.2e}, rays {rays[0]} vs {rays[1]} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    if frac < PIX_FRAC or mean_rel > 0.01 or rays_rel > 0.005:
-        raise AssertionError(f"{tag}: GPU render disagrees with the CPU render")
+        return r.hdr_image(), r.rays_traced
+
+    gpu, rays_gpu = render(scene, cam, bvh, opts)
+    ref, rays_ref = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), opts)
+    images_agree(tag, "GPU vs CPU", gpu, ref, rays_gpu, rays_ref)
+    if plain_on_gpu:
+        before = dict(ct.launch_counts)
+        oracle, rays_o = render(scene, cam, bvh,
+                                opts.replace(use_pallas_traversal=False))
+        if ct.launch_counts != before:
+            raise AssertionError(f"{tag}: use_pallas_traversal=False launched "
+                                 f"kernels: {before} -> {ct.launch_counts}")
+        images_agree(tag, "GPU kernels vs GPU plain walks (no launches)", gpu,
+                     oracle, rays_gpu, rays_o)
+        images_agree(tag, "GPU plain walks vs CPU", oracle, ref, rays_o, rays_ref)
+    log(f"[{tag} parity] {w}x{h}: {time.perf_counter() - t0:.1f} s")
 
 
 def probe_bound(cfg):
@@ -901,9 +966,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     build_info = phase_build()
     errs, rows, launches, per_frame = {}, {}, {}, {}
-    paths = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
-             ("stress14", STRESS14_CASES))
-    for tag, cases in paths:
+    for tag, cases in PATH_CASES:
         scene, cam, bvh = phase_scene(tag, dev)
         e, r = phase_kernels(tag, scene, cam, bvh, dev, cases)
         for k, v in e.items():
@@ -911,20 +974,21 @@ def main() -> int:
         rows.update(r)
         counts, per_kind = phase_slice(tag, scene, cam, bvh,
                                        {k for k, _ in cases})
-        launches.update({k: counts[k] for k, _ in cases})
+        for k in {k for k, _ in cases}:
+            launches[k] = launches.get(k, 0) + counts[k]
         per_frame.update(per_kind)
-        phase_parity(tag, scene, cam, bvh)
+        phase_parity(tag, scene, cam, bvh, plain_on_gpu=tag == "headline")
         del scene, cam, bvh
         torch.cuda.empty_cache()
     p_launches, p_errs, p_rows = phase_probes(dev)
     launches.update(p_launches)
     errs.update(p_errs)
 
-    # one row per (kernel, ray kind): the kind's mode, launches per frame,
-    # and what those launches cost above the bound
+    # one row per (path, kernel, ray kind): the kind's mode, launches per
+    # frame, and what those launches cost above the bound
     table = []
-    for (k, kind), row in rows.items():
-        n = per_frame.get((k, kind), 0)
+    for (tag, k, kind), row in rows.items():
+        n = per_frame.get((tag, k, kind), 0)
         table.append({"kernel": k, "kind": kind, **row, "launches_per_frame": n,
                       "excess_ms_per_frame": n * (row["ms"] - row["bound_ms"])})
         before = ("" if "prev_ms" not in row else
@@ -938,7 +1002,7 @@ def main() -> int:
 
     # traversal kernels: closest hit on the 1080p rays each serves; probes:
     # P1 per-group(now), P2 at 19 tiles
-    entry = {k: rows[(k, SERVES[k])] for k in SERVES}
+    entry = {k: rows[(path, k, kind)] for k, (path, kind) in SERVES.items()}
     entry["mm_probe_kernel"] = next(r for r in p_rows if r.get("label") == P1_LINE)
     entry["dg_probe_kernel"] = next(r for r in p_rows
                                     if r.get("tiles") == P2_LINE_TILES)

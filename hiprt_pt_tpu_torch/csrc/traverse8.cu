@@ -30,8 +30,6 @@
 // without loading them, and reads a leaf with 16-byte loads, a group's
 // loads ahead of its tests (see the kernel).
 
-#include <climits>
-
 #include "traverse_common.cuh"
 
 namespace {
@@ -217,8 +215,6 @@ constexpr int kLaneThreads = 128;
 // at least four blocks an SM leaves ptxas up to 128 registers a thread; it
 // takes 80, so six blocks are resident (eight would spill)
 constexpr int kLaneBlocksPerSM = 4;
-constexpr int kNone = INT_MIN;    // no node or leaf in hand
-constexpr unsigned kMissKey = 0xffffffffu;
 
 // K5 port. One thread per ray, persistent: every thread of the card's
 // resident blocks walks one ray at a time over nodes8l + leaf_rows8 with its
@@ -414,19 +410,6 @@ trace_lane8log_kernel(const float4* __restrict__ nodes8l,
   }
 }
 
-// Blocks of `threads` threads that fit the whole card at once.
-template <typename K>
-int resident_blocks(K kernel, int threads, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return (int)e;
-}
-
 }  // namespace
 
 // Plain C interface for ctypes. Every pointer is a device pointer; `stream`
@@ -488,13 +471,7 @@ int hpt_trace_lane8log(const void* nodes8l, const void* leaf_rows8,
 int hpt_trace_lane8log_info(int any_hit, int* regs, int* local_bytes,
                             int* blocks_per_sm) {
   auto info = [&](auto kernel) {
-    cudaFuncAttributes attr;
-    const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return (int)e;
-    *regs = attr.numRegs;
-    *local_bytes = (int)attr.localSizeBytes;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, kLaneThreads, 0);
+    return kernel_info(kernel, kLaneThreads, regs, local_bytes, blocks_per_sm);
   };
   return any_hit ? info(trace_lane8log_kernel<true>)
                  : info(trace_lane8log_kernel<false>);

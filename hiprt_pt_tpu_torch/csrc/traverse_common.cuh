@@ -1,7 +1,10 @@
-// Device helpers shared by the traversal kernels (traverse.cu, traverse8.cu):
-// the ray record, the near-zero direction guard, the slab test, the
-// Moller-Trumbore triangle test with the equal-t tie rule, and the hit-record
-// store. They follow the HitRecord contract of ops/traverse.py.
+// Helpers shared by the traversal kernels (traverse.cu, traverse8.cu): the
+// ray record, the near-zero direction guard, the slab test, the
+// Moller-Trumbore triangle test with the equal-t tie rule, the hit-record
+// store; for the per-ray walks the warp's draw of ray ids and the test of
+// four triangles behind 16-byte loads; and, for the host, the resident
+// block count of a persistent kernel and a kernel's registers, local memory
+// and residency. They follow the HitRecord contract of ops/traverse.py.
 //
 // Rounding: the kernels are built with -fmad=false, so the triangle test
 // rounds every product and sum exactly as the plain PyTorch version does, and
@@ -10,6 +13,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -23,6 +27,8 @@ constexpr float kTriEps = 1e-9f;
 constexpr int kMegaRowFloats = 128;  // a meganode row (accel/build.py nodes)
 constexpr int kMegaLeafTris = 4;     // triangle slots per child of a row
 constexpr int kMegaStack = 64;       // far-sibling entries (host checks depth2)
+constexpr int kNone = INT_MIN;       // a per-ray walk holds no node or leaf
+constexpr unsigned kMissKey = 0xffffffffu;  // sort key of a child not hit
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
@@ -126,13 +132,6 @@ __device__ __forceinline__ void load_node(const float4* __restrict__ nodes4,
   refs[3] = __float_as_int(q.w);
 }
 
-__device__ __forceinline__ void swap_if(float& ka, int& ra, float& kb, int& rb) {
-  if (ka > kb) {
-    const float k = ka; ka = kb; kb = k;
-    const int r = ra; ra = rb; rb = r;
-  }
-}
-
 __device__ __forceinline__ void write_hit(int64_t i, bool any_hit, int prim,
                                           float t, float u, float v,
                                           float* t_out, int32_t* prim_out,
@@ -142,6 +141,87 @@ __device__ __forceinline__ void write_hit(int64_t i, bool any_hit, int prim,
   prim_out[i] = prim;
   u_out[i] = (hit && !any_hit) ? u : 0.0f;
   v_out[i] = (hit && !any_hit) ? v : 0.0f;
+}
+
+// The next two serve the per-ray walks of traverse.cu. trace_lane8log
+// (traverse8.cu) keeps its own copies of the same code: built from these it
+// took 83 registers and 5 resident blocks an SM where its own copies take
+// 80 and 6 (sm_90a, measured on an NVIDIA H100).
+//
+// Ray ids for the lanes of a warp that need one (`want` is their ballot):
+// one atomicAdd a warp on the global counter, consecutive ids by rank. Every
+// lane of the warp calls it; the id means something only where `want` has
+// the lane's bit, and an id >= n says the pool is empty.
+__device__ __forceinline__ int64_t warp_take_rays(
+    unsigned want, int lane, unsigned long long* __restrict__ next_ray) {
+  const int leader = __ffs(want) - 1;
+  unsigned long long base = 0;
+  if (lane == leader) {
+    base = atomicAdd(next_ray, (unsigned long long)__popc(want));
+  }
+  base = __shfl_sync(0xffffffffu, base, leader);
+  return (int64_t)base + __popc(want & ((1u << lane) - 1u));
+}
+
+// Four triangle slots (36 floats at a 16-byte boundary: nine 16-byte loads,
+// all ahead of the tests) with their prim ids at `prims`; the first `cnt`
+// slots are tested (cnt may be <= 0 or > 4). An any-hit walk stops at its
+// first hit and sets `done`.
+template <bool kAnyHit>
+__device__ __forceinline__ void test_four(const float4* __restrict__ tri4,
+                                          const float* __restrict__ prims,
+                                          int cnt, const Ray& r, float& best_t,
+                                          float& best_u, float& best_v,
+                                          int& best_prim, bool& done) {
+  float f[36];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const float4 q = __ldg(tri4 + j);
+    f[4 * j + 0] = q.x;
+    f[4 * j + 1] = q.y;
+    f[4 * j + 2] = q.z;
+    f[4 * j + 3] = q.w;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float t, u, v;
+    int prim;
+    if (k < cnt && !done &&
+        triangle(f + 9 * k, prims + k, r, best_t, best_prim, t, u, v, prim)) {
+      best_t = t;
+      best_u = u;
+      best_v = v;
+      best_prim = prim;
+      if (kAnyHit) done = true;
+    }
+  }
+}
+
+// Blocks of `threads` threads that fit the whole card at once.
+template <typename K>
+int resident_blocks(K kernel, int threads, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return (int)e;
+}
+
+// Registers per thread, local memory bytes per thread (a stack and any
+// spills) and resident blocks of `threads` threads per SM of a kernel.
+template <typename K>
+int kernel_info(K kernel, int threads, int* regs, int* local_bytes,
+                int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, threads, 0);
 }
 
 }  // namespace hpt

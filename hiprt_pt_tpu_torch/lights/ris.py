@@ -45,7 +45,7 @@ def ris_direct_lighting(options: RenderOptions, scene, bvh, settings, mats,
     ``shadow_coherent``: this wavefront's shadow rays are screen-tile
     coherent (the camera vertex with tile-shared light candidates), so they
     take the coherent route."""
-    trace = tracer(bvh, coherent=shadow_coherent)
+    trace = tracer(bvh, shadow_coherent, options.use_pallas_traversal)
     n = p.shape[0]
     dev = p.device
     M_l = int(settings.ris.number_of_light_candidates)
@@ -126,8 +126,7 @@ def ris_direct_lighting(options: RenderOptions, scene, bvh, settings, mats,
             pdf_l = torch.where(valid & torch.isfinite(pdf_l), pdf_l, 0.0)
             dist = t_e
         else:
-            rec = tracer(bvh, coherent=shadow_coherent)(
-                bvh, o, wi, t_min=0.0, active=cand)
+            rec = trace(bvh, o, wi, t_min=0.0, active=cand)
             pdf_l, is_em = emissive_pdf_of_direction(scene, o, rec.prim, rec.t, wi)
             em = scene.materials.fields_at(
                 scene.material_ids[rec.prim.clamp_min(0).long()],

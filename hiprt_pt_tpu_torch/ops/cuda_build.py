@@ -49,7 +49,7 @@ SOURCES = {
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _trace(n_tables: int, counter: bool) -> list:
+def trace_args(n_tables: int, counter: bool) -> list:
     """A traversal kernel's arguments: its tables, o, d, t_min, t_max,
     active, n (int64), any_hit, [a scratch counter], t, prim, u, v, stream."""
     return ([_P] * (n_tables + 5) + [ctypes.c_int64, _I]
@@ -57,23 +57,25 @@ def _trace(n_tables: int, counter: bool) -> list:
 
 
 MM_PROBE_ARGS = [_P, _P] + [_I] * 8 + [_P] * 3
-TRACE8_ARGS = _trace(2, True)
+# *_info: any_hit or is_int8, then three int pointers (registers per thread,
+# local or shared memory bytes, resident blocks per SM)
+INFO_ARGS = [_I, _P, _P, _P]
 # source name -> {C function: argument types}
 SIGNATURES = {
-    "traverse": {"hpt_trace_coherent": _trace(2, False),
-                 "hpt_trace_incoherent": _trace(2, False),
-                 "hpt_trace_meganode": _trace(1, False)},
-    # *_info: any_hit or is_int8, then three int pointers (registers per
-    # thread, local or shared memory bytes, resident blocks per SM)
-    "traverse8": {"hpt_trace_stream8": _trace(2, True),
-                  "hpt_trace_lane8log": _trace(2, True),
-                  "hpt_trace_lane8log_info": [_I, _P, _P, _P]},
+    "traverse": {"hpt_trace_coherent": trace_args(2, False),
+                 "hpt_trace_incoherent": trace_args(2, True),
+                 "hpt_trace_incoherent_info": INFO_ARGS,
+                 "hpt_trace_meganode": trace_args(1, True),
+                 "hpt_trace_meganode_info": INFO_ARGS},
+    "traverse8": {"hpt_trace_stream8": trace_args(2, True),
+                  "hpt_trace_lane8log": trace_args(2, True),
+                  "hpt_trace_lane8log_info": INFO_ARGS},
     # mm: tab_t, idx, L, W, w_pad, l_pad, nl, rounds, groups, is_int8,
     # partial, out, stream; mm_rows: the gathered rows of a block; dg: tab,
     # idx, S, tiles, rounds, partial, out, stream
     "probes": {"hpt_mm_probe": MM_PROBE_ARGS,
                "hpt_mm_probe_rows": [],
-               "hpt_mm_probe_info": [_I, _P, _P, _P],
+               "hpt_mm_probe_info": INFO_ARGS,
                "hpt_dg_probe": [_P, _P, _I, _I, _I, _P, _P, _P]},
 }
 

@@ -1,20 +1,24 @@
 """Hopper traversal kernels (csrc/traverse.cu, csrc/traverse8.cu) and their
 wrappers — the counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
 
-- ``trace_incoherent``: one thread per ray over the BVH4; replaces the TPU
-  kernel ``_kernel_lane8s`` (K1).
+- ``trace_incoherent``: one persistent thread per ray over the BVH4
+  (``nodes4`` + ``leaf_rows``), refilled from a global ray counter, as a
+  while-while walk (the warp descends together, then tests leaves together;
+  the nearest child stays in a register, a pop skips entries the ray has
+  passed, leaves are read with 16-byte loads); replaces the TPU kernel
+  ``_kernel_lane8s`` (K1).
 - ``trace_coherent``: a 128-ray packet per block with one shared stack;
   replaces ``_kernel_compact4`` (K2).
-- ``trace_meganode``: a 128-ray packet per block over the meganode table
-  ``bvh.nodes``; replaces ``_kernel`` / ``traverse_pallas`` (K3).
+- ``trace_meganode``: the same per-ray while-while walk over the meganode
+  table ``bvh.nodes`` (a visit reads the row's 64 bytes of boxes and refs;
+  a leaf child's triangles only when the ray hits its box); replaces
+  ``_kernel`` / ``traverse_pallas`` (K3).
 - ``trace_stream8``: 128-ray packets over the BVH8 (``nodes8l`` +
   ``leaf_rows8``), persistent blocks refilled from a global packet counter;
   replaces ``_kernel_stream8l`` (K4).
 - ``trace_lane8log``: one persistent thread per ray over the BVH8, refilled
-  from a global ray counter, as a while-while walk (the warp descends
-  together, then tests leaves together; the nearest child stays in a
-  register, a pop skips entries the ray has passed, leaves are read with
-  16-byte loads); replaces ``_kernel_lane8log`` (K5).
+  from a global ray counter, the same while-while walk; replaces
+  ``_kernel_lane8log`` (K5).
 
 Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
@@ -37,8 +41,8 @@ from .traverse import (HitRecord, check_meganode_depth, check_stack8_depth,
 # kernel -> (source, scratch counter dtype)
 _KERNELS = {
     "trace_coherent": ("traverse", None),
-    "trace_incoherent": ("traverse", None),
-    "trace_meganode": ("traverse", None),
+    "trace_incoherent": ("traverse", torch.int64),
+    "trace_meganode": ("traverse", torch.int64),
     "trace_stream8": ("traverse8", torch.int32),
     "trace_lane8log": ("traverse8", torch.int64),
 }
@@ -106,7 +110,8 @@ def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
 
 def trace_incoherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                      any_hit: bool = False) -> HitRecord:
-    """Per-ray BVH4 walk (K1 port)."""
+    """Per-ray BVH4 while-while walk in persistent threads with a ray-pool
+    refill (K1 port)."""
     if o.device.type == "cpu":
         return plain.traverse(bvh, o, d, t_min, t_max, active, any_hit)
     return _launch("trace_incoherent", bvh, o, d, t_min, t_max, active, any_hit)
@@ -122,8 +127,8 @@ def trace_coherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
 
 def trace_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                    any_hit: bool = False) -> HitRecord:
-    """128-ray packet walk over the meganode table (K3 port); rays in
-    tile-major order. Needs ``bvh.nodes``."""
+    """Per-ray while-while walk over the meganode table in persistent
+    threads with a ray-pool refill (K3 port). Needs ``bvh.nodes``."""
     if o.device.type == "cpu":
         return plain.traverse_meganode(bvh, o, d, t_min, t_max, active,
                                        any_hit=any_hit)

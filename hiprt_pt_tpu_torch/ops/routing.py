@@ -7,7 +7,17 @@ applied in its order; only its test for a TPU backend is left out. Its
 ray-count conditions (a wavefront that is a multiple of 128 or 1024 rays)
 are layout rules of the TPU kernels, which the port's kernels do not have,
 so they are left out too. Where no gate holds the JAX package walks the
-BVH in plain XLA; the port has no such kernel and raises.
+BVH in plain XLA. Its last two caps (MAX_STREAM8L_NODES, MAX_STREAM8L_LEAVES)
+bound a table that its kernel holds in on-chip memory; the port's BVH8
+kernels read their tables from device memory, so a scene past every gate
+goes to them: coherent rays to trace_stream8, incoherent rays to
+trace_lane8log, limited only by their stack (ops/traverse.py,
+check_stack8_depth).
+
+``tracer`` hands the integrator the wrapper of the routed kernel or, with
+``RenderOptions.use_pallas_traversal`` off, that kernel's plain walk
+(PLAIN_WALKS), which launches nothing on any device: the JAX package's
+switch to its exact XLA walks (``render/integrator.py:74, 199``).
 """
 
 from __future__ import annotations
@@ -33,6 +43,14 @@ KERNEL_TABLES = {
     "trace_incoherent": ("nodes4", "leaf_rows"),
     "trace_stream8": ("nodes8l", "leaf_rows8"),
     "trace_lane8log": ("nodes8l", "leaf_rows8"),
+}
+# the plain PyTorch version of each kernel (ops/traverse.py)
+PLAIN_WALKS = {
+    "trace_meganode": "traverse_meganode",
+    "trace_coherent": "traverse",
+    "trace_incoherent": "traverse",
+    "trace_stream8": "traverse8",
+    "trace_lane8log": "traverse8",
 }
 TABLE_WIDTHS = {"nodes": 128, "nodes4": 32, "leaf_rows": 128, "nodes8l": 64,
                 "leaf_rows8": 128}
@@ -75,7 +93,8 @@ def wide_ok(bvh) -> bool:
 def needs_bvh8(bvh) -> bool:
     """Whether a route of this scene reaches a BVH8 kernel, read from the
     tables built before the BVH8: no meganode table, and coherent rays past
-    the BVH4 gate or incoherent rays past the lane8s gate."""
+    the BVH4 gate or incoherent rays past the lane8s gate (a scene past
+    every gate is among them)."""
     return not meganode_ok(bvh) and not (wide_ok(bvh) and lane8s_tables_ok(bvh))
 
 
@@ -93,11 +112,17 @@ def route(bvh, coherent: bool) -> str:
         return "trace_lane8log"
     if stream8_ok(bvh):
         return "trace_stream8"
-    raise NotImplementedError(
-        "no traversal kernel of the port serves this scene: its tables are "
-        "past every gate (ROADMAP §4, a kernel for scenes past the BVH8 "
-        f"caps); nodes4 {tuple(bvh.nodes4.shape)}, lane8 {bvh.lane8}, "
-        f"nodes8l {None if bvh.nodes8l is None else tuple(bvh.nodes8l.shape)}")
+    # past every gate of the JAX package: the BVH8 kernels, whose tables
+    # have no size cap here
+    if bvh.nodes8l is None or bvh.leaf_rows8 is None:
+        raise ValueError(
+            "this scene is past every BVH4 gate and its BVH has no BVH8 "
+            f"tables: nodes4 {tuple(bvh.nodes4.shape)}, lane8 {bvh.lane8}; "
+            "build it with accel/build.py:build_bvh")
+    from .traverse import check_stack8_depth
+
+    check_stack8_depth(bvh)
+    return "trace_stream8" if coherent else "trace_lane8log"
 
 
 def routed_tables(bvh) -> set:
@@ -105,12 +130,18 @@ def routed_tables(bvh) -> set:
     return {t for c in (True, False) for t in KERNEL_TABLES[route(bvh, c)]}
 
 
-def tracer(bvh, coherent: bool):
+def tracer(bvh, coherent: bool, use_kernels: bool = True):
     """The wrapper (ops/cuda_traverse.py) of the kernel that ``route``
-    picks; on CPU tensors it runs the kernel's plain version."""
-    from . import cuda_traverse
+    picks; on CPU tensors it runs the kernel's plain version. With
+    ``use_kernels`` off (RenderOptions.use_pallas_traversal): that kernel's
+    plain walk (ops/traverse.py) itself, on whatever device the tensors
+    lie; it launches no kernel of the port."""
+    from . import cuda_traverse, traverse
 
-    return getattr(cuda_traverse, route(bvh, coherent))
+    kernel = route(bvh, coherent)
+    if not use_kernels:
+        return getattr(traverse, PLAIN_WALKS[kernel])
+    return getattr(cuda_traverse, kernel)
 
 
 def _route_table(tri_scales) -> None:

@@ -1,4 +1,4 @@
-"""The three paths that chip_smoke.py drives and profile_frame.py profiles:
+"""The four paths that chip_smoke.py drives and profile_frame.py profiles:
 each path's scene, camera, BVH and render options, at the 16:9 aspect of a
 1920x1080 frame.
 
@@ -13,6 +13,10 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   stress interior at tri_scale=14 (2,042,048 triangles, 120 emitters, 18
   textures), the full principled BSDF, RIS; trace_stream8 and
   trace_lane8log.
+- ``headline``: bench.py's headline configuration itself (bench.py:112-134;
+  cell ``stress-1080p-principled-ris``): the stress interior at tri_scale=1
+  (259,120 triangles, 120 emitters, 18 textures), the full principled BSDF,
+  RIS; trace_coherent and trace_incoherent.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import torch
 
 from .core.device import resolve_device
 
-PATHS = ("stress", "cornell", "stress14")
+PATHS = ("stress", "cornell", "stress14", "headline")
 # the kernels that serve each path's (coherent, incoherent) rays
 ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "cornell": ("trace_meganode", "trace_meganode"),
-          "stress14": ("trace_stream8", "trace_lane8log")}
+          "stress14": ("trace_stream8", "trace_lane8log"),
+          "headline": ("trace_coherent", "trace_incoherent")}
+# the paths under RIS with the principled BSDF (bench.py's make_renderer)
+_RIS_PATHS = ("stress14", "headline")
 ASPECT = 16 / 9
 
 
@@ -52,8 +59,8 @@ def load(path: str, device=None):
         cam = camera_from_lookat(**cam_kw, device=device)
     else:
         scene, cam = load_stress_scene(
-            aspect=ASPECT, seed=7, tri_scale=1.0 if path == "stress" else 14.0,
-            num_emitters=120, with_textures=path == "stress14", device=device)
+            aspect=ASPECT, seed=7, tri_scale=14.0 if path == "stress14" else 1.0,
+            num_emitters=120, with_textures=path in _RIS_PATHS, device=device)
         v, f = scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy()
     t1 = time.perf_counter()
     bvh = build_bvh(v, f, device)
@@ -67,9 +74,9 @@ def slice_options(path: str):
     """(RenderOptions, RenderSettings, WorldSettings) of a path. The stress
     path: Lambertian override, no dispersion, MIS NEE. The Cornell path: the
     defaults, i.e. the full principled BSDF with dispersion and thin film,
-    MIS NEE. The 2.04M-triangle path: bench.py's make_renderer, i.e. the
-    defaults with RIS (4 light + 1 BSDF candidate, proxy target, 128-ray
-    light tiles). All with 4 bounces, one sample per frame and ambient
+    MIS NEE. The 2.04M-triangle path and the headline path: bench.py's
+    make_renderer, i.e. the defaults with RIS (4 light + 1 BSDF candidate,
+    proxy target, 128-ray light tiles). All with 4 bounces, one sample per frame and ambient
     NONE."""
     from .core.settings import (AmbientLightType, BSDFOverride,
                                 LightSamplingStrategy, RenderOptions,
@@ -83,7 +90,7 @@ def slice_options(path: str):
     else:
         assert opts.bsdf_override == BSDFOverride.NONE
         assert opts.do_dispersion and opts.do_thin_film
-    if path == "stress14":
+    if path in _RIS_PATHS:
         opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RIS_BSDF_LIGHT)
         assert opts.ris_proxy_target and opts.ris_tile_light_candidates == 128
     settings = RenderSettings(nb_bounces=4, samples_per_frame=1)

@@ -1,7 +1,7 @@
 """Where one frame's time goes on the card, for one of the paths of
 paths.py (the paths chip_smoke.py drives).
 
-    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14]
+    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline]
 
 Builds the path's scene (paths.load), renders one warm-up frame at
 1920x1080, then one frame under ``torch.profiler`` (CPU and CUDA
@@ -9,10 +9,10 @@ activities). Prints the frame's wall time unprofiled and profiled, the
 device's self time (the sum over device kernels) and its busy share, the
 host's launch count, and the operators and kernels with the most device
 time (operators by the device time of the kernels they launch, then the
-kernels themselves). For the 2.04M-triangle path it also times, with CUDA events, the
-parts of one RIS vertex wavefront on the camera pass's hits: the full
-``ris_direct_lighting``, the dense emissive sweep and the winner's
-visibility ray. Needs a GPU; exits non-zero without one.
+kernels themselves). For the two RIS paths (stress14, headline) it also
+times, with CUDA events, the parts of one RIS vertex wavefront on the
+camera pass's hits: the full ``ris_direct_lighting``, the dense emissive
+sweep and the winner's visibility ray. Needs a GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def main(path: str = "stress14") -> int:
             print(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms "
                   f"{e.self_device_time_total / device_us:6.1%} x{e.count:6d}  "
                   f"{e.key[:110]}")
-    if path == "stress14":
+    if path in ("stress14", "headline"):
         _ris_parts(scene, cam, bvh, opts, settings)
     return 0
 

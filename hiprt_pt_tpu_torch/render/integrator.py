@@ -13,7 +13,9 @@ Traversal routes in the JAX package's order (``_make_tracers``) through
 coherent, every other ray incoherent, and the scene's tables pick the kernel
 (trace_meganode for a kept meganode table; trace_coherent / trace_incoherent
 over the BVH4; trace_stream8 / trace_lane8log over the BVH8 past the BVH4
-and lane8s gates). On CPU tensors each runs its plain PyTorch walk.
+and lane8s gates, and past every gate). On CPU tensors each runs its plain
+PyTorch walk, and with ``RenderOptions.use_pallas_traversal`` off every ray
+takes the routed kernel's plain walk on any device (no kernel launches).
 
 Direct light is MIS NEE or RIS (lights/ris.py); textures modulate the
 materials at every vertex and normal maps the shading normals. The RNG draws
@@ -151,7 +153,8 @@ def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
     if settings.enable_adaptive_sampling:
         active = active & ~state.pixel_converged
 
-    rec = _tracer(bvh, coherent=True)(bvh, o, d, t_min=0.0, active=active)
+    rec = _tracer(bvh, True, options.use_pallas_traversal)(
+        bvh, o, d, t_min=0.0, active=active)
     hit = rec.prim >= 0
     ns, ng, uv, mat_id, tangent = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
     ns = _normal_mapped(scene, mat_id, uv, ns, tangent)
@@ -197,7 +200,7 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
             contrib = contrib + c * inv_ls
             n_shadow = n_shadow + rays
         return rng_state, contrib, n_shadow
-    occluded = _tracer(bvh, coherent=shadow_coherent)
+    occluded = _tracer(bvh, shadow_coherent, options.use_pallas_traversal)
     for _ in range(n_ls):
         rng_state, ls = sample_emissive_triangle(scene, p, rng_state)
         wi = ls["wi"]
@@ -375,8 +378,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
 
         # --- trace the bounce ray ---
         o_next = offset_ray_origin(p, ng, wi)
-        rec = _tracer(bvh, coherent=False)(bvh, o_next, wi, t_min=0.0,
-                                           active=valid_sample)
+        rec = _tracer(bvh, False, options.use_pallas_traversal)(
+            bvh, o_next, wi, t_min=0.0, active=valid_sample)
         hit = rec.prim >= 0
         ns2, ng2, uv2, mat_id2, tan2 = _interpolate_hit(scene, rec.prim, rec.u,
                                                         rec.v, wi)

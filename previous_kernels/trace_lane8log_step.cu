@@ -160,19 +160,6 @@ trace_lane8log_kernel(const float4* __restrict__ nodes8l,
   }
 }
 
-// Blocks of `threads` threads that fit the whole card at once.
-template <typename K>
-int resident_blocks(K kernel, int threads, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return (int)e;
-}
-
 }  // namespace
 
 // Plain C interface for ctypes. Every pointer is a device pointer; `stream`

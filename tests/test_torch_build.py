@@ -58,7 +58,8 @@ def test_previous_kernels_stay_out_of_the_package():
     the package, and define other C names than the package's kernels."""
     prev = os.path.join(REPO, "previous_kernels")
     names = {f for f in os.listdir(prev) if f.endswith(".cu")}
-    assert names == {"mm_probe_mma_sync.cu", "trace_lane8log_step.cu"}
+    assert names == {"mm_probe_mma_sync.cu", "trace_lane8log_step.cu",
+                     "trace_incoherent_step.cu", "trace_meganode_packet.cu"}
     package = {fn for sig in cuda_build.SIGNATURES.values() for fn in sig}
     for f in names:
         with open(os.path.join(prev, f)) as fh:

@@ -14,7 +14,8 @@ against the JAX package.
 - The routes: on the 2.04M-triangle interior (tri_scale=14) the port picks
   trace_stream8 for coherent and trace_lane8log for incoherent rays, where
   the JAX gates (backend check patched to "tpu", as tests/test_scale.py
-  does) pick K4 and K5; the stress and Cornell routes stay as they were.
+  does) pick K4 and K5; the stress and Cornell routes stay as they were; a
+  scene past every gate goes to the BVH8 kernels.
 """
 
 import os
@@ -235,18 +236,33 @@ def test_routes_match_the_jax_gates(small, monkeypatch):
 
 
 def test_route_raises_past_every_gate(small):
+    """Past every gate of the JAX package (its last caps bound a table held
+    in on-chip memory) the port routes to the BVH8 kernels: coherent rays to
+    trace_stream8, incoherent rays to trace_lane8log. What still raises: a
+    tree deeper than the BVH8 walks' stack, and a BVH without BVH8 tables."""
     import dataclasses
 
     from hiprt_pt_tpu_torch.accel.build import Lane8Sizes
+    from hiprt_pt_tpu_torch.ops import routing
 
     tbvh = small[4]
     big = dataclasses.replace(
         tbvh, nodes4=torch.zeros((100_000, 32)), nodes8l=torch.zeros((200_000, 64)),
         lane8=Lane8Sizes(nodes=70_000, leaves=30_000, row_bytes=1808, depth=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        route(big, coherent=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        route(big, coherent=True)
+    assert big.nodes8l.shape[0] > routing.MAX_STREAM8L_NODES
+    assert not (routing.meganode_ok(big) or routing.wide_ok(big)
+                or routing.lane8s_tables_ok(big) or routing.lane8_ok(big)
+                or routing.stream8_ok(big))
+    assert route(big, coherent=False) == "trace_lane8log"
+    assert route(big, coherent=True) == "trace_stream8"
+    assert routing.needs_bvh8(big)
+    assert routed_tables(big) == {"nodes8l", "leaf_rows8"}
+    deep = dataclasses.replace(big, depth8=14)
+    for coherent in (False, True):
+        with pytest.raises(ValueError, match="stack"):
+            route(deep, coherent=coherent)
+        with pytest.raises(ValueError, match="BVH8"):
+            route(dataclasses.replace(big, nodes8l=None), coherent=coherent)
 
 
 def test_kernel_wrappers_run_traverse8_on_cpu(small):

@@ -308,3 +308,155 @@ def test_lane8log_tiny_negative_direction_components():
     np.testing.assert_allclose(rec.t.cpu().numpy(), bt.cpu().numpy(), rtol=1e-6)
     occ = ct.trace_lane8log(bvh, o_t, d_t, 1e-4, 2.0, any_hit=True)
     assert (occ.prim >= 0).all()
+
+
+# --- the per-ray while-while walks over the BVH4 (K1) and the meganode
+# table (K3) ---
+
+def _walk_case(kernel, gpu_scene, gpu_cornell, n, seed):
+    """(bvh, plain walk, o, d, t_max, active) for ``kernel``: rays in the
+    stress hall for trace_incoherent, inside the Cornell box for
+    trace_meganode; finite t_max on three rays in ten, a tenth inactive."""
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    if kernel == "trace_incoherent":
+        _, _, bvh, dev = gpu_scene
+        o, d, t_max, active = _rays(dev, n=n, seed=seed)
+        return bvh, plain.traverse, o, d, t_max, active
+    bvh, dev = gpu_cornell
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(rng.random(n) < 0.3, rng.uniform(0.2, 2.0, n), np.inf)
+    o, d, t_max = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                   for x in (o, d, t_max))
+    active = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    return bvh, plain.traverse_meganode, o, d, t_max, active
+
+
+def _hold_against_plain(rk, rp, active, any_hit):
+    pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
+    act = active.cpu().numpy()
+    assert np.all(pk[~act] == -1) and np.all(np.isinf(rk.t.cpu().numpy()[~act]))
+    if any_hit:
+        assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
+        assert not rk.u.any() and not rk.v.any()
+    else:
+        assert np.mean(pk == pp) >= 0.9999
+        m = (pk == pp) & (pk >= 0)
+        np.testing.assert_allclose(rk.t.cpu().numpy()[m], rp.t.cpu().numpy()[m],
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n", [16389, 77, 1])
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode"])
+def test_walk_kernels_ragged_counts(gpu_scene, gpu_cornell, kernel, n, any_hit):
+    """trace_incoherent (K1 port) and trace_meganode (K3 port) against their
+    plain walks on ray counts that are no multiple of their 128-thread
+    blocks or of a warp, with finite t_max and inactive rays: prim agreement
+    >= 0.9999 (any-hit: occlusion), t within rtol 1e-5 where the prims
+    agree, inactive rays all misses."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    bvh, walk, o, d, t_max, active = _walk_case(kernel, gpu_scene, gpu_cornell,
+                                                n, seed=3)
+    before = ct.launch_counts[kernel]
+    rk = getattr(ct, kernel)(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert ct.launch_counts[kernel] == before + 1
+    rp = walk(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    _hold_against_plain(rk, rp, active, any_hit)
+
+
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode"])
+def test_walk_kernels_tiny_negative_direction_components(kernel):
+    """Rays straight down onto a quad with x and z components of -1e-13,
+    +1e-13, -0 and +0 (tests/test_torch_meganode.py): the kernel hits what
+    brute force hits, at t = 1 (rtol 1e-6), and reports occlusion."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest
+
+    comps = [-1e-13, 1e-13, -0.0, 0.0]
+    d = np.asarray([[cx, -1.0, cz] for cx in comps for cz in comps], np.float32)
+    o = np.tile(np.asarray([[0.1, 1.0, 0.2]], np.float32), (len(d), 1))
+    verts = np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
+    tris = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    dev = torch.device("cuda:0")
+    bvh = build_bvh(verts, tris, dev, all_tables=True)
+    o_t, d_t = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    bt, bp, _, _ = brute_force_closest(
+        torch.from_numpy(verts).to(dev), torch.from_numpy(tris).to(dev), o_t, d_t,
+        t_min=0.0)
+    trace = getattr(ct, kernel)
+    rec = trace(bvh, o_t, d_t, 0.0)
+    torch.cuda.synchronize()
+    assert np.all(bp.cpu().numpy() >= 0)
+    assert np.array_equal(rec.prim.cpu().numpy(), bp.cpu().numpy())
+    np.testing.assert_allclose(rec.t.cpu().numpy(), bt.cpu().numpy(), rtol=1e-6)
+    occ = trace(bvh, o_t, d_t, 1e-4, 2.0, any_hit=True)
+    assert (occ.prim >= 0).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_incoherent_on_a_table_past_the_old_leaf_cap(any_hit):
+    """trace_incoherent against traverse on the 70,000-triangle table of
+    tests/test_torch_routing.py (shaped like tests/test_scale.py::
+    test_lane8s_beyond_old_leaf_cap), 2,048 rays: equal prims (any-hit:
+    equal occlusion), t within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    rng = np.random.default_rng(11)
+    ntri = 70_000
+    c = rng.uniform(-1, 1, (ntri, 3)).astype(np.float32)
+    verts = (c[:, None, :] + rng.uniform(-0.01, 0.01, (ntri, 3, 3))
+             ).astype(np.float32).reshape(-1, 3)
+    tris = np.arange(ntri * 3).reshape(-1, 3).astype(np.int32)
+    dev = torch.device("cuda:0")
+    bvh = build_bvh(verts, tris, dev)
+    n = 2048
+    o = torch.from_numpy(rng.uniform(-1.1, 1.1, (n, 3)).astype(np.float32)).to(dev)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True)).to(dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    rk = ct.trace_incoherent(bvh, o, d, any_hit=any_hit)
+    torch.cuda.synchronize()
+    rp = plain.traverse(bvh, o, d, any_hit=any_hit)
+    assert 0.1 < float((rp.prim >= 0).float().mean()) < 0.9
+    _hold_against_plain(rk, rp, active, any_hit)
+    if not any_hit:
+        assert torch.equal(rk.prim, rp.prim)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode"])
+def test_walk_kernels_all_inactive_and_repeatable(gpu_scene, gpu_cornell,
+                                                  kernel, any_hit):
+    """A wavefront whose rays are all inactive comes back all misses, and
+    two launches on the same rays give bit-identical records (each ray's
+    record is written once, by the thread that walked it, whatever the
+    order in which the threads drew their rays)."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    bvh, _walk, o, d, t_max, active = _walk_case(kernel, gpu_scene, gpu_cornell,
+                                                 5000, seed=8)
+    trace = getattr(ct, kernel)
+    none = trace(bvh, o, d, 1e-4, t_max, torch.zeros_like(active), any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert (none.prim == -1).all() and torch.isinf(none.t).all()
+    assert not none.u.any() and not none.v.any()
+    first = trace(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    again = trace(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert (first.prim >= 0).any()
+    for a, b in zip((first.t, first.prim, first.u, first.v),
+                    (again.t, again.prim, again.u, again.v)):
+        assert torch.equal(a, b)
