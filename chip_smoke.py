@@ -7,14 +7,14 @@ Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
                 source: the five traversal kernels and the two probes), the
-                four earlier kernel versions of previous_kernels/ (outside
+                six earlier kernel versions of previous_kernels/ (outside
                 the package, built only to be timed beside the versions
                 that replaced them) and the BVH build library (g++); print
-                what ptxas says of every kernel (a spill in trace_incoherent
-                or trace_meganode fails the phase), and the registers per
-                thread and resident blocks per SM of mm_probe_kernel,
-                trace_lane8log, trace_incoherent and trace_meganode in both
-                versions.
+                what ptxas says of every kernel (a spill in trace_coherent,
+                trace_incoherent, trace_meganode or dg_probe_kernel fails
+                the phase), and the registers per thread, local and shared
+                memory and resident blocks per SM of the six redesigned
+                kernels in both versions.
   Then, for each of the four paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
@@ -30,9 +30,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 1,024 camera or bounce rays also against brute force; then
                 the kernel's and the plain version's time and the kernel's
                 bound on each (kernel, ray kind) at 1080p; for
-                trace_lane8log, trace_incoherent and trace_meganode also
-                the earlier version (held against the plain version too)
-                timed on the same rays, in turns with the new one.
+                trace_coherent, trace_incoherent, trace_meganode and
+                trace_lane8log also the earlier version (held against the
+                plain version too) timed on the same rays, in turns with
+                the new one; for trace_coherent the share of its 32-ray
+                packets that left packet mode.
   5. slice    — the renderer at 1920x1080, 4 bounces, with the path's
                 options (paths.slice_options): one warm-up frame and 4
                 timed frames. Launch counts are reset just before and read
@@ -61,7 +63,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 in a second run), at shapes off mm_probe_kernel's tile, and
                 on the probe's own inputs (the constant); kernel, plain
                 and library times and the bounds at the probe shapes, and
-                for mm_probe_kernel the earlier version's time beside it.
+                for both kernels the earlier version's time beside it;
+                dg_probe_kernel also on a table past the shared-memory
+                size (its L2 kernel).
 The lines before the last hold one row per (kernel, ray kind) and the
 kernels' JSON summary (each kernel's time on the 1080p rays it serves on
 its path, or on its probe's reference configuration, its plain version's,
@@ -113,9 +117,10 @@ SOURCE = {k: "hiprt_pt_tpu_torch/csrc/traverse.cu" for k in KERNELS} | {
 # the (kernel, ray kind) pairs each path holds against the plain version,
 # times and bounds: every kind the path sends each kernel, and on the
 # 2.04M-triangle path the kinds it does not (K4 on bounce rays, K5 on
-# camera rays) for comparison
+# camera rays; on the stress path K1 on camera rays beside K2) for comparison
 STRESS_CASES = (("trace_coherent", "camera"), ("trace_coherent", "shadow"),
-                ("trace_incoherent", "bounce"), ("trace_incoherent", "shadow"))
+                ("trace_incoherent", "bounce"), ("trace_incoherent", "shadow"),
+                ("trace_incoherent", "camera"))
 CORNELL_CASES = tuple(("trace_meganode", kind)
                       for kind in ("camera", "bounce", "shadow"))
 STRESS14_CASES = tuple((k, kind) for k in ("trace_stream8", "trace_lane8log")
@@ -163,16 +168,21 @@ P1_OFF_TILE_ROUNDS = 5
 # the earlier versions of the redesigned kernels, kept outside the package
 # for the side-by-side timing: source -> extra nvcc flags; their libraries,
 # once phase_build has loaded them
-PREVIOUS = {"mm_probe_mma_sync": [], "trace_lane8log_step": ["-fmad=false"],
+PREVIOUS = {"mm_probe_mma_sync": [], "dg_probe_l2": [],
+            "trace_lane8log_step": ["-fmad=false"],
             "trace_incoherent_step": ["-fmad=false"],
-            "trace_meganode_packet": ["-fmad=false"]}
+            "trace_meganode_packet": ["-fmad=false"],
+            "trace_coherent_block": ["-fmad=false"]}
 _previous = {}
 # traversal kernel -> (its earlier version's source, the package source of
 # the new version, whether the earlier version takes a scratch counter); the
 # C functions are hpt_prev_<kernel>[_info]
 EARLIER = {"trace_lane8log": ("trace_lane8log_step", "traverse8", True),
            "trace_incoherent": ("trace_incoherent_step", "traverse", False),
-           "trace_meganode": ("trace_meganode_packet", "traverse", False)}
+           "trace_meganode": ("trace_meganode_packet", "traverse", False),
+           "trace_coherent": ("trace_coherent_block", "traverse", False)}
+# a table past the shared-memory size of dg_probe_kernel's strips: (S, tiles)
+P2_PAST_SHARED = (30000, 2)
 
 
 def log(*a):
@@ -192,13 +202,14 @@ def phase_device() -> str:
     return name
 
 
-def _kernel_info(fn, flag):
-    """(registers per thread, local or shared memory bytes, resident blocks
-    per SM) from a source's *_info function."""
+def _kernel_info(fn, *flags):
+    """(registers per thread, local memory bytes per thread, shared memory
+    bytes per block, resident blocks per SM) from a source's *_info
+    function."""
     import ctypes
 
-    out = [ctypes.c_int() for _ in range(3)]
-    err = fn(flag, *(ctypes.byref(x) for x in out))
+    out = [ctypes.c_int() for _ in range(4)]
+    err = fn(*flags, *(ctypes.byref(x) for x in out))
     if err != 0:
         raise RuntimeError(f"kernel info failed: cudaError {err}")
     return tuple(x.value for x in out)
@@ -206,18 +217,23 @@ def _kernel_info(fn, flag):
 
 def phase_build():
     """Build every source at once; returns {kernel: {version: {mode:
-    (registers, memory bytes, blocks per SM)}}} of the redesigned
-    kernels."""
+    (registers, local bytes, shared bytes, blocks per SM)}}} of the
+    redesigned kernels."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
     from hiprt_pt_tpu_torch.accel.native import get_lib
     from hiprt_pt_tpu_torch.ops import cuda_build
+    from hiprt_pt_tpu_torch.probes import r5probe2 as pr
 
     here = os.path.dirname(os.path.abspath(__file__))
+    dg_args = cuda_build.SIGNATURES["probes"]["hpt_dg_probe"]
     signatures = {
         "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS,
-                              "hpt_prev_mm_probe_info": cuda_build.INFO_ARGS}}
+                              "hpt_prev_mm_probe_info": cuda_build.INFO_ARGS},
+        # the earlier dg_probe_kernel takes no strip width and block size
+        "dg_probe_l2": {"hpt_prev_dg_probe": dg_args[:5] + dg_args[7:],
+                        "hpt_prev_dg_probe_info": cuda_build.INFO_ARGS}}
     for k, (source, _package, counter) in EARLIER.items():
         signatures[source] = {
             "hpt_prev_" + k: cuda_build.trace_args(len(KERNEL_TABLES[k]), counter),
@@ -245,26 +261,43 @@ def phase_build():
                 or "warning" in line or "(C7" in line):
             log("[build] ptxas:", line.strip().replace("ptxas info    : ", ""))
     check_no_spill(cuda_build.build_log,
-                   ("trace_incoherent_kernel", "trace_meganode_kernel"))
+                   ("trace_coherent_kernel", "trace_incoherent_kernel",
+                    "trace_meganode_kernel", "dg_probe_kernel"))
     log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
         f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
         f"library {t2 - t1:.2f} s")
+    # kernel -> (the new version's *_info, the earlier version's, {mode:
+    # flags of the new version's}, {mode: flags of the earlier version's})
+    modes = {"closest": (0,), "any-hit": (1,)}
     fns = {"mm_probe_kernel": (libs["probes"].hpt_mm_probe_info,
                                _previous["mm_probe_mma_sync"].hpt_prev_mm_probe_info,
-                               (("int8", 1), ("bf16", 0)), "shared")}
+                               {"int8": (1,), "bf16": (0,)}, None)}
     for k, (source, package, _counter) in EARLIER.items():
         fns[k] = (getattr(libs[package], f"hpt_{k}_info"),
-                  getattr(_previous[source], f"hpt_prev_{k}_info"),
-                  (("closest", 0), ("any-hit", 1)), "local")
+                  getattr(_previous[source], f"hpt_prev_{k}_info"), modes, None)
+    # dg_probe_kernel at the probe's two configurations: strip width, block
+    # size and table rows as its wrapper plans them on this card
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fns["dg_probe_kernel"] = (
+        libs["probes"].hpt_dg_probe_info,
+        _previous["dg_probe_l2"].hpt_prev_dg_probe_info,
+        {f"{tiles} tiles": (*pr.dg_plan(S, tiles, sms), S)
+         for S, tiles in pr.DG_CONFIGS},
+        {f"{tiles} tiles": (0,) for _S, tiles in pr.DG_CONFIGS})
     info = {}
-    for k, (new_fn, prev_fn, flags, mem) in fns.items():
-        info[k] = {ver: {mode: _kernel_info(fn, flag) for mode, flag in flags}
-                   for ver, fn in (("new", new_fn), ("previous", prev_fn))}
+    for k, (new_fn, prev_fn, flags, prev_flags) in fns.items():
+        info[k] = {"new": {m: _kernel_info(new_fn, *f) for m, f in flags.items()},
+                   "previous": {m: _kernel_info(prev_fn, *f)
+                                for m, f in (prev_flags or flags).items()}}
         for ver, by_mode in info[k].items():
-            for mode, (regs, nbytes, blocks) in by_mode.items():
-                log(f"[build] {k} ({ver}, {mode}): {regs} registers per thread, "
-                    f"{nbytes} bytes of {mem} memory, {blocks} resident blocks "
-                    f"per SM")
+            for mode, (regs, local, shared, blocks) in by_mode.items():
+                plan = (f", strips of {flags[mode][0]} lanes, blocks of "
+                        f"{flags[mode][1]} threads"
+                        if k == "dg_probe_kernel" and ver == "new" else "")
+                log(f"[build] {k} ({ver}, {mode}{plan}): {regs} registers per "
+                    f"thread, {local} bytes of local memory per thread, "
+                    f"{shared} bytes of shared memory per block, {blocks} "
+                    f"resident blocks per SM")
     return info
 
 
@@ -285,6 +318,22 @@ def previous_mm_probe(table, idx, rounds, groups):
         out.data_ptr(), torch.cuda.current_stream(tab.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"the earlier mm_probe_kernel failed: cudaError {err}")
+    return out
+
+
+def previous_dg_probe(tab, idx, rounds):
+    """The earlier dg_probe_kernel (previous_kernels/dg_probe_l2.cu: every
+    element gathered from device memory through the L2) on the same
+    inputs."""
+    S, tiles = tab.shape[0], tab.shape[1] // 128
+    partial = torch.empty((rounds * tiles,), dtype=torch.float32,
+                          device=tab.device)
+    out = torch.empty((1, 1), dtype=torch.float32, device=tab.device)
+    err = _previous["dg_probe_l2"].hpt_prev_dg_probe(
+        tab.data_ptr(), idx.data_ptr(), S, tiles, rounds, partial.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(tab.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the earlier dg_probe_kernel failed: cudaError {err}")
     return out
 
 
@@ -586,6 +635,12 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             errs[kname] = max(errs[kname], compare(tag_, rk, rp, any_hit, a))
             mode = "any" if any_hit else "closest"
             row[f"{mode}_ms"], row[f"{mode}_plain_ms"] = k_ms, p_ms
+            packets = ""
+            if kname == "trace_coherent":
+                left, total = ct.coherent_packets()
+                row[f"{mode}_left_share"] = left / total
+                packets = (f"; {left} of {total} packets "
+                           f"({left / total:.4f}) left packet mode")
             before = ""
             if kname in EARLIER:
                 # the earlier version on the same rays, then the new again
@@ -601,7 +656,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             log(f"[kernels] {kname} {'any-hit' if any_hit else 'closest'} on "
                 f"{o.shape[0]} {kind} rays ({int(a.sum())} active): kernel "
                 f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{before} "
-                f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel)")
+                f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel){packets}")
         mode = "any" if kind == "shadow" else "closest"
         stats = {}
         walk(bvh, o, d, 1e-4 if kind == "shadow" else 0.0, t_max, a,
@@ -614,7 +669,12 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
         if f"{mode}_prev_ms" in row:
             rows[(tag, kname, kind)] |= {"prev_ms": row[f"{mode}_prev_ms"],
                                          "any_prev_ms": row["any_prev_ms"],
-                                         "ms_again": row[f"{mode}_ms_again"]}
+                                         "ms_again": row[f"{mode}_ms_again"],
+                                         "any_ms_again": row["any_ms_again"]}
+        if f"{mode}_left_share" in row:
+            rows[(tag, kname, kind)] |= {
+                "left_share": row[f"{mode}_left_share"],
+                "any_left_share": row["any_left_share"]}
         log(f"[kernels] {kname} bound on {o.shape[0]} {kind} rays ({mode}): "
             f"{b_ms:.4f} ms ({b_by}); plain walk {stats}")
     return errs, rows
@@ -892,25 +952,56 @@ def phase_probes(dev):
         for per_lane in (True, False):
             tab, idx = pr.dg_gate_inputs(S, tiles, seed=20 + i, device=dev,
                                          per_lane=per_lane)
-            got = float(pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS))
+            first = pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS)
+            again = pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS)
+            got = float(first)
+            earlier = float(previous_dg_probe(tab, idx, DG_GATE_ROUNDS))
             want = float(pr.dg_probe_plain(tab, idx, DG_GATE_ROUNDS))
             errs["dg_probe_kernel"] = max(errs["dg_probe_kernel"], abs(got - want))
             log(f"[probes] dg_probe_kernel gate (S={S} tiles={tiles}, "
                 f"{'per-lane' if per_lane else 'broadcast'} indices, "
-                f"{DG_GATE_ROUNDS} rounds): kernel {got}, plain {want}")
-            if got != want:
+                f"{DG_GATE_ROUNDS} rounds): kernel {got}, plain {want}, a "
+                f"second run {float(again)}, earlier version {earlier}")
+            if got != want or earlier != want:
                 raise AssertionError(f"dg_probe_kernel S={S} tiles={tiles}: "
-                                     f"{got} != {want}")
+                                     f"{got} (earlier version {earlier}) != {want}")
+            if not torch.equal(first, again):
+                raise AssertionError(f"dg_probe_kernel S={S} tiles={tiles}: two "
+                                     f"runs differ")
+    # past the shared-memory size the L2 kernel runs (negative indices too)
+    S, tiles = P2_PAST_SHARED
+    if pr.dg_plan(S, tiles)[0] != 0:
+        raise AssertionError(f"S={S} should be past dg_probe_kernel's strips")
+    tab, idx = pr.dg_gate_inputs(S, tiles, seed=25, device=dev)
+    idx = (idx - S * (idx % 3 == 0).int()).contiguous()
+    got = float(pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS))
+    want = float(pr.dg_probe_plain(tab, idx, DG_GATE_ROUNDS))
+    errs["dg_probe_kernel"] = max(errs["dg_probe_kernel"], abs(got - want))
+    log(f"[probes] dg_probe_kernel past the shared-memory size (S={S} "
+        f"tiles={tiles}, negative indices, gathers served from "
+        f"{pr.dg_served_from(0)}): kernel {got}, plain {want}")
+    if got != want:
+        raise AssertionError(f"dg_probe_kernel S={S} tiles={tiles}: {got} != {want}")
     S, tiles = pr.DG_CONFIGS[-1]
     tab, idx = pr.dg_gate_inputs(S, tiles, seed=30, device=dev, integer=False)
-    got = float(pr.dg_probe_kernel(tab, idx, pr.ROUNDS))
+    first = pr.dg_probe_kernel(tab, idx, pr.ROUNDS)
+    again = pr.dg_probe_kernel(tab, idx, pr.ROUNDS + 1)
+    got = float(first)
     want = float(pr.dg_probe_plain(tab, idx, pr.ROUNDS))
+    want33 = float(pr.dg_probe_plain(tab, idx, pr.ROUNDS + 1))
     errs["dg_probe_kernel"] = max(errs["dg_probe_kernel"], abs(got - want))
     log(f"[probes] dg_probe_kernel float table (S={S} tiles={tiles}, "
         f"{pr.ROUNDS} rounds): kernel {got!r}, plain (float64) {want!r}, "
-        f"rel. diff {abs(got - want) / abs(want):.3e} (rtol {PROBE_FLOAT_RTOL})")
+        f"rel. diff {abs(got - want) / abs(want):.3e} (rtol {PROBE_FLOAT_RTOL}); "
+        f"{pr.ROUNDS + 1} rounds (a second pass): kernel {float(again)!r}, "
+        f"plain {want33!r}")
     if not abs(got - want) <= PROBE_FLOAT_RTOL * abs(want):
         raise AssertionError("dg_probe_kernel disagrees on the float table")
+    if not abs(float(again) - want33) <= PROBE_FLOAT_RTOL * abs(want33):
+        raise AssertionError("dg_probe_kernel disagrees on the float table in "
+                             "a second pass of rounds")
+    if not torch.equal(first, pr.dg_probe_kernel(tab, idx, pr.ROUNDS)):
+        raise AssertionError("dg_probe_kernel: two runs on the float table differ")
     del tab, idx
 
     # times at the probe's shapes: the kernel's from main(), the plain
@@ -939,6 +1030,11 @@ def phase_probes(dev):
             row["plain_ms"] = cuda_ms(lambda: pr.dg_probe_plain(
                 tab, idx, res["rounds"]), reps=1)[0]
             row["library_ms"], why = dg_library_ms(tab, idx, res["rounds"]), None
+            # the earlier version on the same inputs, then the new again
+            row["prev_ms"] = cuda_ms(lambda: previous_dg_probe(
+                tab, idx, res["rounds"]), reps=KERNEL_REPS)[0]
+            row["ms_again"] = cuda_ms(lambda: pr.dg_probe_kernel(
+                tab, idx, res["rounds"]), reps=KERNEL_REPS)[0]
             name = f"dg_probe_kernel S={res['S']} tiles={res['tiles']}"
         del tab, idx
         row["bound_ms"], row["bound_by"] = probe_bound(res)
@@ -946,9 +1042,14 @@ def phase_probes(dev):
             log(f"[probes] {name}: the library yardstick was refused: {why}")
         lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
         eff = ("" if "eff" not in row else f", one-hot product at "
-               f"{row['eff'] * 100:.1f}% of the dense {row['dtype']} peak; "
-               f"earlier version {row['prev_ms']:.3f} ms, kernel again "
-               f"{row['ms_again']:.3f} ms")
+               f"{row['eff'] * 100:.1f}% of the dense {row['dtype']} peak")
+        if "gather_gbs" in row:
+            eff = (f", {row['gather_gbs']:,.0f} GB/s of gathers served from "
+                   f"{pr.dg_served_from(row['g'])} (earlier version "
+                   f"{row['gather_gbs'] * row['ms'] / row['prev_ms']:,.0f} GB/s "
+                   f"from {pr.dg_served_from(0)})")
+        eff += (f"; earlier version {row['prev_ms']:.3f} ms, kernel again "
+                f"{row['ms_again']:.3f} ms")
         log(f"[probes] {name}: kernel {row['ms']:.3f} ms "
             f"({row['ms'] / row['rounds'] * 1e3:.1f} us/round), plain "
             f"{row['plain_ms']:.3f} ms, library {lib}, bound "
@@ -992,7 +1093,10 @@ def main() -> int:
         table.append({"kernel": k, "kind": kind, **row, "launches_per_frame": n,
                       "excess_ms_per_frame": n * (row["ms"] - row["bound_ms"])})
         before = ("" if "prev_ms" not in row else
-                  f" (earlier version {row['prev_ms']:.3f} ms)")
+                  f" (again {row['ms_again']:.3f} ms, earlier version "
+                  f"{row['prev_ms']:.3f} ms)")
+        if "left_share" in row:
+            before += f", {row['left_share']:.4f} of packets left packet mode"
         log(f"[rows] {k} {kind} ({row['mode']}, {row['path']}): kernel "
             f"{row['ms']:.3f} ms{before}, plain {row['plain_ms']:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {n} launches/frame, "

@@ -3,7 +3,8 @@
 // of a K-major tile under the 128-byte swizzle, and wgmma with the A operand
 // in registers ("RS": D[64 x N] += A[64 x K] . B[K x N], B read from shared
 // memory through its descriptor), for s8 x s8 -> s32 (K = 32) and
-// bf16 x bf16 -> f32 (K = 16).
+// bf16 x bf16 -> f32 (K = 16); and cp.async, the per-thread copy into shared
+// memory that the strip of dg_probe_kernel is staged with.
 //
 // Register fragments of one warpgroup (PTX ISA, wgmma.mma_async): warp w of
 // the four owns rows 16 w .. 16 w + 15; lane = 4 g + q. A (four 32-bit
@@ -302,6 +303,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// cp.async: kBytes (8 or 16) from device memory straight into shared
+// memory, no register in between (16 bytes pass the L1 by); the copies of a
+// thread are awaited together.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* src) {
+  static_assert(kBytes == 8 || kBytes == 16, "8 or 16 bytes a copy");
+  const uint32_t dst = smem_u32(smem_dst);
+  const size_t gsrc = __cvta_generic_to_global(src);
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gsrc)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gsrc)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace hpt

@@ -53,17 +53,32 @@
 // gathered rows are laid over the columns: a block never straddles a
 // group, and its rows past the group's end are masked.
 //
-// P2 reads rows straight from device memory: a block per (tile, round), a
-// thread per (lane, slice of the S rows); neighbouring lanes read
-// neighbouring columns of their rows, so a broadcast index array gives
-// coalesced rows and a per-lane one scattered words. What bounds P2 is
-// bytes (the table, the indices and the output once); the gathered words
-// come from L2, which holds the whole table at the probe's sizes.
+// P2. What bounds the function it returns is bytes: the table, the indices
+// and the output once. The TPU kernel holds the whole table in on-chip
+// memory and gathers from there; on this card the on-chip memory that takes
+// a data-dependent gather is an SM's shared memory, 227 KB a block. So a
+// block owns a strip of the table, (tile c, a group of G of its 128 lanes):
+// S x G floats, staged once into shared memory with cp.async, after which
+// the table has crossed the memory system once. All rounds run inside the
+// block: a thread owns one lane of the group and a slice of the S index
+// rows, reads idx[s, k] once, and serves 32 rounds from it, one running
+// maximum a round in registers (row (idx + r) mod S is the row after
+// (idx + r - 1) mod S, so a round costs an add, a wrap, a shared-memory load
+// and a max); more than 32 rounds take another pass over the indices. Every
+// gather of every round is performed, from the strip. The running maxima
+// of the threads that share a lane meet by shuffles within a warp and by
+// atomicMax on order-preserving integer keys across warps (a maximum does
+// not depend on the order it is taken in). G and the block size are the
+// wrapper's choice (probes/r5probe2.py:dg_plan), so that the strips fill
+// the card's SMs at 4 tiles and at 19. A table whose strip of the least G
+// does not fit a block's shared memory goes to the earlier kernel
+// (dg_probe_l2_kernel): a block per (tile, round), every element gathered
+// from device memory through the L2.
 //
 // Both probes write one partial sum per (block, round) and add the
-// partials in a second pass in a fixed order, never with atomics, so the
-// result repeats bit for bit. With integer table values every partial sum
-// is an integer, exact in f32 below 2^24, and the result is exact.
+// partials in a second pass in a fixed order, so the result repeats bit
+// for bit whichever block ran when. With integer table values every partial
+// sum is an integer, exact in f32 below 2^24, and the result is exact.
 //
 // Built without -fmad=false (unlike the traversal sources): there is no
 // floating-point product to keep bit-identical.
@@ -95,7 +110,9 @@ constexpr int kMmStageBytes = kMmN * kMmChunkBytes;
 constexpr int kMmStages = 7;                 // table tiles in flight (112 KB)
 constexpr int kMmSmemBytes = kMmStages * kMmStageBytes + 1024;
 constexpr int kDgLanes = 128;        // lanes of a P2 tile
-constexpr int kDgSlices = 8;         // slices of the S rows per block
+constexpr int kDgRounds = 32;        // rounds a pass: running maxima a thread
+constexpr int kDgMaxThreads = 1024;
+constexpr int kDgSlices = 8;         // dg_probe_l2_kernel: slices of the S rows
 constexpr int kSumThreads = 256;
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
@@ -303,11 +320,109 @@ mm_probe_kernel(const __grid_constant__ CUtensorMap tmap,
   }
 }
 
-// P2: block (tile c, round r); thread (lane k, slice y) takes rows
-// s = y, y + kDgSlices, ...
-__global__ void __launch_bounds__(kDgLanes * kDgSlices)
+// A float as an unsigned key of the same order (no NaN), and back.
+__device__ __forceinline__ unsigned ordered_key(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float ordered_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// P2: block (tile c, lanes k0 .. k0 + G - 1); thread (lane kk of the group,
+// slice y) takes rows s = y, y + blockDim.x / G, ... The strip is row-major,
+// strip[row][kk]: the G lanes of a row are neighbours, so a broadcast index
+// row reads G consecutive words. partial[(round) * units + unit].
+template <int G>
+__global__ void __launch_bounds__(kDgMaxThreads)
 dg_probe_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
-                int S, int tiles, float* __restrict__ partial) {
+                int S, int tiles, int rounds, float* __restrict__ partial) {
+  constexpr int kVec = G >= 4 ? 4 : G;     // floats a cp.async
+  constexpr int kRowVecs = G / kVec;
+  extern __shared__ __align__(16) float strip[];
+  __shared__ unsigned lane_max[kDgRounds][G];
+  const int units = tiles * (kDgLanes / G);
+  const int unit = blockIdx.x;
+  const int c = unit / (kDgLanes / G), k0 = (unit % (kDgLanes / G)) * G;
+  const int kk = threadIdx.x % G, y = threadIdx.x / G, ny = blockDim.x / G;
+  const size_t row_stride = (size_t)tiles * kDgLanes;
+
+  // the strip, once: every thread's copies are in flight together
+  const float* src = tab + (size_t)c * kDgLanes + k0;
+  for (int q = threadIdx.x; q < S * kRowVecs; q += blockDim.x) {
+    const int row = q / kRowVecs, part = q % kRowVecs;
+    cp_async<4 * kVec>(strip + (size_t)q * kVec,
+                       src + row * row_stride + part * kVec);
+  }
+  const int* my_idx = idx + k0 + kk;
+  int first = y < S ? __ldg(my_idx + (size_t)y * kDgLanes) : 0;
+  cp_async_wait_all();
+
+  for (int r0 = 0; r0 < rounds; r0 += kDgRounds) {
+    const int nr = min(kDgRounds, rounds - r0);
+    for (int j = threadIdx.x; j < kDgRounds * G; j += blockDim.x) {
+      lane_max[j / G][j % G] = ordered_key(-INFINITY);
+    }
+    __syncthreads();  // the strip (first pass) and the keys are in place
+    const int rb = r0 % S;
+    float acc[kDgRounds];
+#pragma unroll
+    for (int j = 0; j < kDgRounds; ++j) acc[j] = -INFINITY;
+    // kWhole: the pass has all its kDgRounds rounds
+    auto gather = [&](auto whole) {
+      constexpr bool kWhole = decltype(whole)::value;
+      int next = first;
+      for (int s = y; s < S; s += ny) {
+        const int base = floor_mod(next, S);
+        if (s + ny < S) next = __ldg(my_idx + (size_t)(s + ny) * kDgLanes);
+        int row = base + rb;
+        if (row >= S) row -= S;
+#pragma unroll
+        for (int j = 0; j < kDgRounds; ++j) {
+          if (kWhole || j < nr) {
+            acc[j] = fmaxf(acc[j], strip[row * G + kk]);
+            if (++row == S) row = 0;
+          }
+        }
+      }
+    };
+    if (nr == kDgRounds) {
+      gather(std::true_type());
+    } else {
+      gather(std::false_type());
+    }
+    // the threads of a lane: the lanes kk, kk + G, ... of a warp by
+    // shuffles, the warps by atomicMax on the keys
+#pragma unroll
+    for (int j = 0; j < kDgRounds; ++j) {
+      float m = acc[j];
+#pragma unroll
+      for (int off = 16; off >= G; off >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      }
+      if ((threadIdx.x & 31) < G && j < nr) {
+        atomicMax(&lane_max[j][kk], ordered_key(m));
+      }
+    }
+    __syncthreads();
+    // a round's sum over the group's lanes, in lane order
+    for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) sum += ordered_float(lane_max[j][g]);
+      partial[(size_t)(r0 + j) * units + unit] = sum;
+    }
+    __syncthreads();  // lane_max is read before the next pass resets it
+  }
+}
+
+// P2 for a table whose strip does not fit shared memory: block (tile c,
+// round r); thread (lane k, slice y) takes rows s = y, y + kDgSlices, ...
+// and gathers every element from device memory (the L2, while the table
+// fits it); neighbouring lanes read neighbouring columns of their rows.
+__global__ void __launch_bounds__(kDgLanes * kDgSlices)
+dg_probe_l2_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
+                   int S, int tiles, float* __restrict__ partial) {
   __shared__ float red[kDgSlices][kDgLanes];
   const int k = threadIdx.x, y = threadIdx.y;
   const int c = blockIdx.x, r = blockIdx.y;
@@ -431,15 +546,17 @@ extern "C" int hpt_mm_probe(const void* tab_t, const int* idx, int L, int W,
   return (int)cudaGetLastError();
 }
 
-// Registers per thread, static + dynamic shared memory and resident blocks
-// per SM of P1's kernel (int8 or bf16), for the records.
-extern "C" int hpt_mm_probe_info(int is_int8, int* regs, int* smem_bytes,
-                                 int* blocks_per_sm) {
+// Registers per thread, local memory bytes per thread, static + dynamic
+// shared memory and resident blocks per SM of P1's kernel (int8 or bf16),
+// for the records.
+extern "C" int hpt_mm_probe_info(int is_int8, int* regs, int* local_bytes,
+                                 int* smem_bytes, int* blocks_per_sm) {
   auto info = [&](auto kernel) {
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return (int)e;
     *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
     *smem_bytes = (int)attr.sharedSizeBytes + kMmSmemBytes;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMmSmemBytes);
@@ -450,14 +567,82 @@ extern "C" int hpt_mm_probe_info(int is_int8, int* regs, int* smem_bytes,
   return is_int8 ? info(mm_probe_kernel<true>) : info(mm_probe_kernel<false>);
 }
 
-// tab: (S, tiles * 128) f32; idx: (S, 128) int32; partial: rounds * tiles
-// floats; out: one float. Returns the launches' cudaError.
-extern "C" int hpt_dg_probe(const float* tab, const int* idx, int S, int tiles,
-                            int rounds, float* partial, float* out,
-                            cudaStream_t stream) {
-  dg_probe_kernel<<<dim3(tiles, rounds), dim3(kDgLanes, kDgSlices), 0,
-                    stream>>>(tab, idx, S, tiles, partial);
-  sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(partial, rounds * tiles,
-                                                      out);
+template <int G>
+static int launch_dg_probe(const float* tab, const int* idx, int S, int tiles,
+                           int rounds, int threads, float* partial,
+                           cudaStream_t stream) {
+  const int smem = S * G * (int)sizeof(float);
+  auto kernel = dg_probe_kernel<G>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tiles * (kDgLanes / G), threads, smem, stream>>>(tab, idx, S, tiles,
+                                                           rounds, partial);
   return (int)cudaGetLastError();
+}
+
+// tab: (S, tiles * 128) f32, 16-byte aligned; idx: (S, 128) int32; out: one
+// float. g in {2, 4} and threads (a multiple of 32, at most 1024) pick
+// the shared-memory kernel's strip width and block size; partial: rounds *
+// tiles * 128 / g floats. g = 0 picks the L2 kernel (threads is not read;
+// rounds at most 65,535); partial: rounds * tiles floats. Returns the
+// launches' cudaError (cudaErrorInvalidValue for another g or threads).
+extern "C" int hpt_dg_probe(const float* tab, const int* idx, int S, int tiles,
+                            int rounds, int g, int threads, float* partial,
+                            float* out, cudaStream_t stream) {
+  int n_partial = rounds * tiles;
+  if (g == 0) {
+    dg_probe_l2_kernel<<<dim3(tiles, rounds), dim3(kDgLanes, kDgSlices), 0,
+                         stream>>>(tab, idx, S, tiles, partial);
+  } else {
+    if (threads < 32 || threads > kDgMaxThreads || threads % 32 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    int err;
+    switch (g) {
+      case 2:
+        err = launch_dg_probe<2>(tab, idx, S, tiles, rounds, threads, partial,
+                                 stream);
+        break;
+      case 4:
+        err = launch_dg_probe<4>(tab, idx, S, tiles, rounds, threads, partial,
+                                 stream);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+    if (err != 0) return err;
+    n_partial *= kDgLanes / g;
+  }
+  sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(partial, n_partial, out);
+  return (int)cudaGetLastError();
+}
+
+// Registers per thread, local memory bytes per thread, static + dynamic
+// shared memory of a block and resident blocks per SM of P2's kernel at
+// strip width g (0: the L2 kernel), block size `threads` and S table rows,
+// for the records.
+extern "C" int hpt_dg_probe_info(int g, int threads, int S, int* regs,
+                                 int* local_bytes, int* smem_bytes,
+                                 int* blocks_per_sm) {
+  auto info = [&](auto kernel, int block, int smem) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return (int)e;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *smem_bytes = (int)attr.sharedSizeBytes + smem;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, block, smem);
+  };
+  const int smem = S * g * (int)sizeof(float);
+  switch (g) {
+    case 0: return info(dg_probe_l2_kernel, kDgLanes * kDgSlices, 0);
+    case 2: return info(dg_probe_kernel<2>, threads, smem);
+    case 4: return info(dg_probe_kernel<4>, threads, smem);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

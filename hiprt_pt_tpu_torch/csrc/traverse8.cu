@@ -467,11 +467,13 @@ int hpt_trace_lane8log(const void* nodes8l, const void* leaf_rows8,
 }
 
 // Registers per thread, local memory bytes per thread (the stack and any
-// spills) and resident blocks per SM of trace_lane8log, for the records.
+// spills), static shared memory bytes and
+// resident blocks per SM of trace_lane8log, for the records.
 int hpt_trace_lane8log_info(int any_hit, int* regs, int* local_bytes,
-                            int* blocks_per_sm) {
+                            int* shared_bytes, int* blocks_per_sm) {
   auto info = [&](auto kernel) {
-    return kernel_info(kernel, kLaneThreads, regs, local_bytes, blocks_per_sm);
+    return kernel_info(kernel, kLaneThreads, regs, local_bytes, shared_bytes,
+                       blocks_per_sm);
   };
   return any_hit ? info(trace_lane8log_kernel<true>)
                  : info(trace_lane8log_kernel<false>);

@@ -3,8 +3,8 @@
 // Moller-Trumbore triangle test with the equal-t tie rule, the hit-record
 // store; for the per-ray walks the warp's draw of ray ids and the test of
 // four triangles behind 16-byte loads; and, for the host, the resident
-// block count of a persistent kernel and a kernel's registers, local memory
-// and residency. They follow the HitRecord contract of ops/traverse.py.
+// block count of a persistent kernel and a kernel's registers, local and
+// shared memory and residency. They follow the HitRecord contract of ops/traverse.py.
 //
 // Rounding: the kernels are built with -fmad=false, so the triangle test
 // rounds every product and sum exactly as the plain PyTorch version does, and
@@ -211,15 +211,17 @@ int resident_blocks(K kernel, int threads, int* blocks) {
 }
 
 // Registers per thread, local memory bytes per thread (a stack and any
-// spills) and resident blocks of `threads` threads per SM of a kernel.
+// spills), static shared memory bytes per block and resident blocks of
+// `threads` threads per SM of a kernel.
 template <typename K>
 int kernel_info(K kernel, int threads, int* regs, int* local_bytes,
-                int* blocks_per_sm) {
+                int* shared_bytes, int* blocks_per_sm) {
   cudaFuncAttributes attr;
   const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return (int)e;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
+  *shared_bytes = (int)attr.sharedSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernel, threads, 0);
 }

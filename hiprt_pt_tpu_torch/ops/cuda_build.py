@@ -51,18 +51,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def trace_args(n_tables: int, counter: bool) -> list:
     """A traversal kernel's arguments: its tables, o, d, t_min, t_max,
-    active, n (int64), any_hit, [a scratch counter], t, prim, u, v, stream."""
+    active, n (int64), any_hit, [its scratch words], t, prim, u, v, stream."""
     return ([_P] * (n_tables + 5) + [ctypes.c_int64, _I]
             + [_P] * (5 + int(counter)))
 
 
 MM_PROBE_ARGS = [_P, _P] + [_I] * 8 + [_P] * 3
-# *_info: any_hit or is_int8, then three int pointers (registers per thread,
-# local or shared memory bytes, resident blocks per SM)
-INFO_ARGS = [_I, _P, _P, _P]
+# *_info: any_hit or is_int8, then four int pointers (registers per thread,
+# local memory bytes per thread, shared memory bytes per block, resident
+# blocks per SM)
+INFO_ARGS = [_I, _P, _P, _P, _P]
 # source name -> {C function: argument types}
 SIGNATURES = {
-    "traverse": {"hpt_trace_coherent": trace_args(2, False),
+    "traverse": {"hpt_trace_coherent": trace_args(2, True),
+                 "hpt_trace_coherent_info": INFO_ARGS,
                  "hpt_trace_incoherent": trace_args(2, True),
                  "hpt_trace_incoherent_info": INFO_ARGS,
                  "hpt_trace_meganode": trace_args(1, True),
@@ -72,11 +74,13 @@ SIGNATURES = {
                   "hpt_trace_lane8log_info": INFO_ARGS},
     # mm: tab_t, idx, L, W, w_pad, l_pad, nl, rounds, groups, is_int8,
     # partial, out, stream; mm_rows: the gathered rows of a block; dg: tab,
-    # idx, S, tiles, rounds, partial, out, stream
+    # idx, S, tiles, rounds, g, threads, partial, out, stream; dg_info: g,
+    # threads, S, then the four int pointers of INFO_ARGS
     "probes": {"hpt_mm_probe": MM_PROBE_ARGS,
                "hpt_mm_probe_rows": [],
                "hpt_mm_probe_info": INFO_ARGS,
-               "hpt_dg_probe": [_P, _P, _I, _I, _I, _P, _P, _P]},
+               "hpt_dg_probe": [_P, _P] + [_I] * 5 + [_P] * 3,
+               "hpt_dg_probe_info": [_I] * 3 + [_P] * 4},
 }
 
 _lock = threading.Lock()

@@ -7,8 +7,15 @@ wrappers — the counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
   the nearest child stays in a register, a pop skips entries the ray has
   passed, leaves are read with 16-byte loads); replaces the TPU kernel
   ``_kernel_lane8s`` (K1).
-- ``trace_coherent``: a 128-ray packet per block with one shared stack;
-  replaces ``_kernel_compact4`` (K2).
+- ``trace_coherent``: a 32-ray packet per warp (a 16x2 strip of a screen
+  tile in the tile-major order) in persistent warps that draw packets from
+  a global counter; one stack a warp in shared memory, every decision a
+  warp vote, children near to far by the packet's least entry distance,
+  entries dropped at the pop once their lanes have passed them, leaves by
+  16-byte loads at one address for the warp; a packet whose rays diverge
+  leaves packet mode and its lanes finish with ``trace_incoherent``'s
+  per-ray walk (``coherent_packets`` reads how many did); replaces
+  ``_kernel_compact4`` (K2).
 - ``trace_meganode``: the same per-ray while-while walk over the meganode
   table ``bvh.nodes`` (a visit reads the row's 64 bytes of boxes and refs;
   a leaf child's triangles only when the ray hits its box); replaces
@@ -38,16 +45,21 @@ from .routing import KERNEL_TABLES, TABLE_WIDTHS
 from .traverse import (HitRecord, check_meganode_depth, check_stack8_depth,
                        check_stack_depth, per_ray)
 
-# kernel -> (source, scratch counter dtype)
+# kernel -> (source, dtype and length of its zeroed scratch words: the
+# counter a persistent kernel draws its rays or packets from; for
+# trace_coherent also the count of packets that left packet mode)
 _KERNELS = {
-    "trace_coherent": ("traverse", None),
-    "trace_incoherent": ("traverse", torch.int64),
-    "trace_meganode": ("traverse", torch.int64),
-    "trace_stream8": ("traverse8", torch.int32),
-    "trace_lane8log": ("traverse8", torch.int64),
+    "trace_coherent": ("traverse", torch.int64, 2),
+    "trace_incoherent": ("traverse", torch.int64, 1),
+    "trace_meganode": ("traverse", torch.int64, 1),
+    "trace_stream8": ("traverse8", torch.int32, 1),
+    "trace_lane8log": ("traverse8", torch.int64, 1),
 }
 
 launch_counts = {k: 0 for k in _KERNELS}
+# trace_coherent's last launch: its scratch words and its ray count (read by
+# coherent_packets)
+_coherent_last: list = []
 
 
 def reset_launch_counts() -> None:
@@ -90,22 +102,31 @@ def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
-    src, counter_dtype = _KERNELS[kernel]
-    scratch = ()
-    if counter_dtype is not None:
-        scratch = (torch.zeros((1,), dtype=counter_dtype, device=dev),)
+    src, scratch_dtype, scratch_len = _KERNELS[kernel]
+    scratch = torch.zeros((scratch_len,), dtype=scratch_dtype, device=dev)
     fn = getattr(cuda_build.load_libraries()[src], "hpt_" + kernel)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*tables,
                  o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                 active.data_ptr(), n, int(any_hit),
-                 *(c.data_ptr() for c in scratch), t.data_ptr(),
-                 prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
+                 active.data_ptr(), n, int(any_hit), scratch.data_ptr(),
+                 t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     launch_counts[kernel] += 1
+    if kernel == "trace_coherent":
+        _coherent_last[:] = [scratch, n]
     return HitRecord(t=t, prim=prim, u=u, v=v)
+
+
+def coherent_packets() -> tuple:
+    """(packets that left packet mode, packets) of trace_coherent's last
+    launch on the card; waits for that launch."""
+    if not _coherent_last:
+        raise RuntimeError("trace_coherent has not been launched")
+    scratch, n = _coherent_last
+    return int(scratch[1]), -(-n // 32)
 
 
 def trace_incoherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
@@ -119,7 +140,9 @@ def trace_incoherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
 
 def trace_coherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                    any_hit: bool = False) -> HitRecord:
-    """128-ray packet BVH4 walk (K2 port); rays in tile-major order."""
+    """32-ray warp-packet BVH4 walk in persistent warps, with a way out into
+    the per-ray walk for packets that diverge (K2 port); rays in tile-major
+    order."""
     if o.device.type == "cpu":
         return plain.traverse(bvh, o, d, t_min, t_max, active, any_hit)
     return _launch("trace_coherent", bvh, o, d, t_min, t_max, active, any_hit)

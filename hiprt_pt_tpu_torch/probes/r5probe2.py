@@ -14,9 +14,13 @@ leaf rows? The port of ``benchmarks/r5probe2.py``.
   16-, 12- and 8-bit leaf widths, per group of 512 columns or fused, int8
   or bf16.
 - Q2, P2 ``dg_probe_kernel`` (replaces ``_dg_kernel``): rows gathered lane
-  by lane straight from device memory, the maximum over the S gathered
-  rows of each lane, summed: ``sum_r sum_c sum_k max_s tab[(idx[s, k] + r)
-  mod S, c * 128 + k]``. Two configurations (4 and 19 tiles of 128 lanes).
+  by lane, the maximum over the S gathered rows of each lane, summed:
+  ``sum_r sum_c sum_k max_s tab[(idx[s, k] + r) mod S, c * 128 + k]``. The
+  table is staged once in strips of ``g`` lanes into the SMs' shared
+  memory and every round gathers from there (``dg_plan`` picks ``g`` and
+  the block size); a table whose narrowest strip does not fit a block's
+  shared memory is gathered from device memory through the L2 by a second
+  kernel. Two configurations (4 and 19 tiles of 128 lanes).
 - Q3: the library's row gather (``tab[idx]``) at wavefront width, the
   yardstick both probes are read against; it has no kernel of its own.
 
@@ -55,6 +59,16 @@ W8 = -(-(9 * TC + 16) // 8) * 8        # 1168
 L_STRESS = 2731
 ROUNDS = 32
 DG_LANES = 128
+# P2: the strip widths its shared-memory kernel is built for, widest first;
+# the shared memory a block can have on the H100 (227 KB) less the kernel's
+# static share and the 1 KB the system keeps per block; the SM's shared
+# memory; the card's SMs; the largest block (at the kernel's 58 or 59
+# registers a thread an SM holds 1,024 threads: one such block, or two of 512)
+DG_STRIPS = (4, 2)
+DG_SMEM_BLOCK = 232448 - 2048
+DG_SMEM_SM = 233472
+DG_SMS = 132
+DG_MAX_THREADS = 1024
 # P1: the padded operand's columns (of L) and rows (of W) are multiples of
 # these; the table types its kernel takes
 MM_K_PAD, MM_M_PAD = 32, 16
@@ -93,7 +107,7 @@ def reset_launch_counts() -> None:
 
 
 def _check_rounds(rounds: int) -> None:
-    """Both kernels take a round per grid row (at most 65,535)."""
+    """P1 and P2's L2 kernel take a round per grid row (at most 65,535)."""
     if not 1 <= rounds <= 65535:
         raise ValueError(f"rounds must lie in [1, 65535], got {rounds}")
 
@@ -264,11 +278,38 @@ def mm_probe_kernel(table: MMTable, idx, rounds: int, groups: int = 1):
     return out
 
 
-def dg_probe_kernel(tab, idx, rounds: int):
+def dg_plan(S: int, tiles: int, sms: int = DG_SMS) -> tuple:
+    """(g, threads) of P2's launch on a table of S rows and ``tiles`` lane
+    tiles, on a card of ``sms`` SMs: the strip width in lanes (a block
+    stages S x g floats in shared memory) and the block size; g = 0 when
+    even the narrowest strip does not fit a block's shared memory, and the
+    L2 kernel runs. The widest strip that fits is taken: it reads the most
+    of each 32-byte sector of the table and of the index rows (a strip of 8
+    lanes would fill the sector, but at S = 4,096 it is 128 KB, one block an
+    SM and 304 blocks for 132 SMs at 19 tiles; it is not built). A block has
+    1,024 threads where an SM gets or holds only one strip (4 tiles: 128
+    strips on 132 SMs), else 512, two blocks resident an SM (19 tiles: 608
+    strips), as measured at both."""
+    g = next((g for g in DG_STRIPS if S * g * 4 <= DG_SMEM_BLOCK), 0)
+    if g == 0:
+        return 0, 0
+    strips = tiles * (DG_LANES // g)
+    per_sm = min(-(-strips // sms), DG_SMEM_SM // (S * g * 4 + 2048))
+    return g, DG_MAX_THREADS if per_sm <= 1 else DG_MAX_THREADS // 2
+
+
+def dg_served_from(g: int) -> str:
+    """Where a launch at strip width g gathers from, for the probe's line."""
+    return "the L2" if g == 0 else f"shared memory, strips of {g} lanes"
+
+
+def dg_probe_kernel(tab, idx, rounds: int, plan: tuple | None = None):
     """P2 (the port of _dg_kernel): on CUDA per-lane row gathers from
-    device memory (csrc/probes.cu), a (1, 1) float32 tensor; on the CPU
+    strips of the table staged in shared memory, or from device memory when
+    no strip fits (csrc/probes.cu), a (1, 1) float32 tensor; on the CPU
     ``dg_probe_plain``. ``idx`` is any (S, 128) array, as
-    ``take_along_axis`` takes it."""
+    ``take_along_axis`` takes it. ``plan`` is (g, threads) as ``dg_plan``
+    gives it for this table and card; a timing script may pass another."""
     if tab.device.type == "cpu":
         return dg_probe_plain(tab, idx, rounds)
     if tab.device.type != "cuda":
@@ -280,13 +321,24 @@ def dg_probe_kernel(tab, idx, rounds: int):
     tiles = tab.shape[1] // DG_LANES
     check_tensor("tab", tab, torch.float32, (S, tiles * DG_LANES), dev)
     check_tensor("idx", idx, torch.int32, (S, DG_LANES), dev)
+    if tab.data_ptr() % 16:
+        raise ValueError("tab must start on a 16-byte boundary")
     _check_rounds(rounds)
-    partial = torch.empty((rounds * tiles,), dtype=torch.float32, device=dev)
+    if plan is None:
+        plan = dg_plan(S, tiles,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    g, threads = plan
+    if g != 0 and (g not in DG_STRIPS or S * g * 4 > DG_SMEM_BLOCK
+                   or threads % 32 or not 32 <= threads <= DG_MAX_THREADS):
+        raise ValueError(f"dg_probe_kernel takes no plan {plan} at S = {S}")
+    # one partial sum per (round, strip), or per (round, tile) from the L2
+    strips = tiles * (DG_LANES // g) if g else tiles
+    partial = torch.empty((rounds * strips,), dtype=torch.float32, device=dev)
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     lib = cuda_build.load_libraries()["probes"]
     with torch.cuda.device(dev):
         err = lib.hpt_dg_probe(
-            tab.data_ptr(), idx.data_ptr(), S, tiles, rounds,
+            tab.data_ptr(), idx.data_ptr(), S, tiles, rounds, g, threads,
             partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -358,8 +410,7 @@ def main(device=None, shapes: str = "probe") -> list:
         print(line, flush=True)
         results.append(res)
 
-    print(f"Q2: per-lane row gather from device memory, {rounds} rounds "
-          f"[{where}]", flush=True)
+    print(f"Q2: per-lane row gather, {rounds} rounds [{where}]", flush=True)
     for S, tiles in sizes["dg"]:
         tab, idx = dg_inputs(S, tiles, dev)
         ms, out = timed(lambda: dg_probe_kernel(tab, idx, rounds))
@@ -367,8 +418,16 @@ def main(device=None, shapes: str = "probe") -> list:
                "value": float(out.reshape(())), "ms": ms}
         line = f"  S={S:6d} tiles={tiles:2d} float32: value {res['value']:.1f}"
         if ms is not None:
+            g, threads = dg_plan(
+                S, tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+            # every gathered element is four bytes
+            res |= {"g": g, "threads": threads,
+                    "gather_gbs": S * tiles * DG_LANES * rounds * 4 / ms / 1e6}
             line += (f", {ms / rounds * 1e3:8.1f} us/round, "
-                     f"{ms * 1e6 / rounds / S / tiles:6.3f} ns/row/tile [{where}]")
+                     f"{ms * 1e6 / rounds / S / tiles:6.3f} ns/row/tile, "
+                     f"{res['gather_gbs']:,.0f} GB/s of gathers served from "
+                     f"{dg_served_from(g)} (blocks of {threads} threads) "
+                     f"[{where}]")
         print(line, flush=True)
         results.append(res)
 

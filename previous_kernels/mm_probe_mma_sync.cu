@@ -219,15 +219,16 @@ extern "C" int hpt_prev_mm_probe(const void* tab_t, const int* idx, int L,
   return (int)cudaGetLastError();
 }
 
-// Registers per thread, static shared memory and resident blocks per SM of
-// the kernel (int8 or bf16), for the records.
-extern "C" int hpt_prev_mm_probe_info(int is_int8, int* regs, int* smem_bytes,
-                                      int* blocks_per_sm) {
+// Registers per thread, local memory bytes per thread, static shared memory
+// and resident blocks per SM of the kernel (int8 or bf16), for the records.
+extern "C" int hpt_prev_mm_probe_info(int is_int8, int* regs, int* local_bytes,
+                                      int* smem_bytes, int* blocks_per_sm) {
   auto info = [&](auto kernel) {
     cudaFuncAttributes attr;
     const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return (int)e;
     *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
     *smem_bytes = (int)attr.sharedSizeBytes;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, kernel, kMmWarps * 32, 0);

@@ -124,11 +124,13 @@ int hpt_prev_trace_incoherent(const void* nodes4, const void* leaf_rows,
 }
 
 // Registers per thread, local memory bytes per thread (the stack and any
-// spills) and resident blocks per SM, for the records.
+// spills), static shared memory bytes and
+// resident blocks per SM, for the records.
 int hpt_prev_trace_incoherent_info(int any_hit, int* regs, int* local_bytes,
-                                   int* blocks_per_sm) {
+                                   int* shared_bytes, int* blocks_per_sm) {
   auto info = [&](auto kernel) {
-    return kernel_info(kernel, 128, regs, local_bytes, blocks_per_sm);
+    return kernel_info(kernel, 128, regs, local_bytes, shared_bytes,
+                       blocks_per_sm);
   };
   return any_hit ? info(trace_incoherent_kernel<true>)
                  : info(trace_incoherent_kernel<false>);

@@ -193,15 +193,17 @@ int hpt_prev_trace_lane8log(const void* nodes8l, const void* leaf_rows8,
 }
 
 // Registers per thread, local memory bytes per thread (the stack and any
-// spills) and resident blocks per SM of trace_lane8log, for the records.
+// spills), static shared memory bytes and resident blocks per SM of
+// trace_lane8log, for the records.
 int hpt_prev_trace_lane8log_info(int any_hit, int* regs, int* local_bytes,
-                            int* blocks_per_sm) {
+                                 int* shared_bytes, int* blocks_per_sm) {
   auto info = [&](auto kernel) {
     cudaFuncAttributes attr;
     const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return (int)e;
     *regs = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
+    *shared_bytes = (int)attr.sharedSizeBytes;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, kernel, 128, 0);
   };

@@ -157,11 +157,13 @@ int hpt_prev_trace_meganode(const void* nodes, const void* o, const void* d,
 }
 
 // Registers per thread, local memory bytes per thread (spills; the stack is
-// in shared memory) and resident blocks per SM, for the records.
+// in shared memory), static shared memory bytes and
+// resident blocks per SM, for the records.
 int hpt_prev_trace_meganode_info(int any_hit, int* regs, int* local_bytes,
-                                 int* blocks_per_sm) {
+                                 int* shared_bytes, int* blocks_per_sm) {
   auto info = [&](auto kernel) {
-    return kernel_info(kernel, kPacket, regs, local_bytes, blocks_per_sm);
+    return kernel_info(kernel, kPacket, regs, local_bytes, shared_bytes,
+                       blocks_per_sm);
   };
   return any_hit ? info(trace_meganode_kernel<true>)
                  : info(trace_meganode_kernel<false>);

@@ -59,10 +59,50 @@ def test_previous_kernels_stay_out_of_the_package():
     prev = os.path.join(REPO, "previous_kernels")
     names = {f for f in os.listdir(prev) if f.endswith(".cu")}
     assert names == {"mm_probe_mma_sync.cu", "trace_lane8log_step.cu",
-                     "trace_incoherent_step.cu", "trace_meganode_packet.cu"}
+                     "trace_incoherent_step.cu", "trace_meganode_packet.cu",
+                     "trace_coherent_block.cu", "dg_probe_l2.cu"}
     package = {fn for sig in cuda_build.SIGNATURES.values() for fn in sig}
     for f in names:
         with open(os.path.join(prev, f)) as fh:
             defined = _c_functions(fh.read())
         assert defined and not set(defined) & package
         assert all(fn.startswith("hpt_prev_") for fn in defined)
+
+
+# the earlier versions' C functions as chip_smoke.py declares them: the
+# package's argument lists, with or without the scratch words
+_DG_ARGS = cuda_build.SIGNATURES["probes"]["hpt_dg_probe"]
+PREVIOUS_ARGS = {
+    "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS},
+    "dg_probe_l2": {"hpt_prev_dg_probe": _DG_ARGS[:5] + _DG_ARGS[7:]},
+    "trace_lane8log_step": {"hpt_prev_trace_lane8log": cuda_build.trace_args(2, True)},
+    "trace_incoherent_step": {"hpt_prev_trace_incoherent": cuda_build.trace_args(2, False)},
+    "trace_meganode_packet": {"hpt_prev_trace_meganode": cuda_build.trace_args(1, False)},
+    "trace_coherent_block": {"hpt_prev_trace_coherent": cuda_build.trace_args(2, False)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PREVIOUS_ARGS))
+def test_previous_kernels_take_the_declared_arguments(name):
+    """An earlier version defines its launch function with as many
+    parameters as the argument list it is loaded with, and one *_info
+    function with the parameters of INFO_ARGS."""
+    with open(os.path.join(REPO, "previous_kernels", name + ".cu")) as f:
+        defined = _c_functions(f.read())
+    (fn, argtypes), = PREVIOUS_ARGS[name].items()
+    assert set(defined) == {fn, fn + "_info"}
+    assert defined[fn] == len(argtypes)
+    assert defined[fn + "_info"] == len(cuda_build.INFO_ARGS)
+
+
+def test_trace_coherent_takes_its_scratch_words():
+    """trace_coherent is persistent now: like the per-ray kernels it takes a
+    scratch pointer between any_hit and the outputs, and reports its
+    registers, memory and residency."""
+    sig = cuda_build.SIGNATURES["traverse"]
+    assert sig["hpt_trace_coherent"] == sig["hpt_trace_incoherent"]
+    assert sig["hpt_trace_coherent_info"] == cuda_build.INFO_ARGS
+    assert len(cuda_build.INFO_ARGS) == 5
+    probes = cuda_build.SIGNATURES["probes"]
+    assert len(probes["hpt_dg_probe"]) == 10
+    assert len(probes["hpt_dg_probe_info"]) == 7

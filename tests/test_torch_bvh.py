@@ -103,6 +103,89 @@ def test_matches_pallas_wide_k2_interpret(scenes):
     np.testing.assert_allclose(rec.t.numpy()[m], np.asarray(ref.t)[m], rtol=1e-5)
 
 
+def _k2_interpret(jbvh, o, d, t_min, t_max, active, any_hit):
+    """K2 (_kernel_compact4) in interpret mode on any number of rays: its
+    wrapper takes multiples of 1,024, so the rays are padded with inactive
+    ones, as the JAX package's callers pad a ragged wavefront."""
+    from hiprt_pt_tpu.ops.pallas_traverse import traverse_pallas_wide
+
+    n = len(o)
+    pad = -n % 1024
+
+    def padded(x, fill):
+        return jnp.asarray(np.concatenate(
+            [x, np.full((pad,) + x.shape[1:], fill, x.dtype)]))
+
+    ref = traverse_pallas_wide(
+        jbvh, padded(o, 0.0), padded(d, 1.0), t_min=t_min,
+        t_max=padded(t_max, 1.0), active=padded(active, False),
+        any_hit=any_hit, interpret=True)
+    return np.asarray(ref.prim)[:n], np.asarray(ref.t)[:n]
+
+
+def _shadow_like_rays(jcam, tbvh, n, seed):
+    """Rays shaped like the first bounce's MIS shadow rays: from the camera
+    hits of a 32 x 32 view toward a point per ray under the hall's ceiling,
+    t_max just short of that point; rays whose camera ray missed, and one in
+    eight of the others, are inactive."""
+    rng = np.random.default_rng(seed)
+    o, d = _rays("camera", jcam)
+    first = plain.closest_hit(tbvh, _t(o), _t(d), t_min=0.0)
+    hit = first.prim.numpy() >= 0
+    p = o + d * np.where(hit, first.t.numpy(), 0.0)[:, None]
+    target = rng.uniform([-9.0, 5.0, -5.0], [9.0, 5.8, 5.0], p.shape)
+    to = (target - p).astype(np.float32)
+    dist = np.linalg.norm(to, axis=1).astype(np.float32)
+    wi = (to / dist[:, None]).astype(np.float32)
+    origin = (p + 1e-3 * wi).astype(np.float32)
+    active = hit & (rng.random(len(p)) >= 0.125)
+    t_max = (dist * (1.0 - 1e-3)).astype(np.float32)
+    return origin[:n], wi[:n], t_max[:n], active[:n]
+
+
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_shadow_like_rays_match_pallas_wide_k2_interpret(scenes, n):
+    """The plain walk against interpret-mode K2 on any-hit rays with a
+    per-ray finite t_max and inactive lanes, on a full wavefront and on one
+    whose size is no multiple of 32: equal occlusion on at least 0.999 of
+    the rays (the file's threshold for K2: its packet walk and the per-ray
+    walk differ only where a ray grazes a box), inactive rays all misses."""
+    _, jcam, jbvh, tbvh = scenes
+    o, d, t_max, active = _shadow_like_rays(jcam, tbvh, n, seed=21)
+    assert 0.5 < active.mean() < 0.95
+    ref_prim, ref_t = _k2_interpret(jbvh, o, d, 1e-4, t_max, active, True)
+    rec = plain.traverse(tbvh, _t(o), _t(d), 1e-4, _t(t_max),
+                         torch.from_numpy(active), any_hit=True)
+    got = rec.prim.numpy() >= 0
+    assert len(got) == n
+    assert tp.prim_agreement(ref_prim >= 0, got) >= 0.999
+    assert 0.02 < got[active].mean() < 0.98
+    assert not got[~active].any() and np.all(np.isinf(rec.t.numpy()[~active]))
+    assert not (ref_prim[~active] >= 0).any()
+    assert not rec.u.any() and not rec.v.any()
+
+
+def test_ragged_closest_hit_matches_pallas_wide_k2_interpret(scenes):
+    """Closest hit on 1,000 camera rays (no multiple of 32) with a per-ray
+    t_max and inactive lanes: prims agree on at least 0.999 of the rays and
+    t within rtol 1e-5 where they do, as for the full wavefront above."""
+    _, jcam, jbvh, tbvh = scenes
+    o, d = (x[:1000] for x in _rays("camera", jcam))
+    rng = np.random.default_rng(22)
+    t_max = np.where(rng.random(1000) < 0.3, rng.uniform(0.5, 6.0, 1000),
+                     np.inf).astype(np.float32)
+    active = rng.random(1000) >= 0.1
+    ref_prim, ref_t = _k2_interpret(jbvh, o, d, 0.0, t_max, active, False)
+    rec = plain.traverse(tbvh, _t(o), _t(d), 0.0, _t(t_max),
+                         torch.from_numpy(active))
+    pt = rec.prim.numpy()
+    assert tp.prim_agreement(ref_prim, pt) >= 0.999
+    m = (ref_prim == pt) & (pt >= 0)
+    assert m.sum() > 300
+    np.testing.assert_allclose(rec.t.numpy()[m], ref_t[m], rtol=1e-5)
+    assert np.all(pt[~active] == -1) and np.all(ref_prim[~active] == -1)
+
+
 def test_matches_pallas_lane8s_k1_interpret(scenes):
     """K1 (_kernel_lane8s) in interpret mode on 1,024 incoherent rays. Its
     leaves sit on an int8 lattice, so its raw t carries an absolute error of

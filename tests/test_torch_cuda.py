@@ -311,17 +311,21 @@ def test_lane8log_tiny_negative_direction_components():
 
 
 # --- the per-ray while-while walks over the BVH4 (K1) and the meganode
-# table (K3) ---
+# table (K3), and the warp-packet walk over the BVH4 (K2) ---
 
 def _walk_case(kernel, gpu_scene, gpu_cornell, n, seed):
     """(bvh, plain walk, o, d, t_max, active) for ``kernel``: rays in the
-    stress hall for trace_incoherent, inside the Cornell box for
+    stress hall for trace_incoherent, the first n camera rays of a 256x128
+    view in tile order for trace_coherent, rays inside the Cornell box for
     trace_meganode; finite t_max on three rays in ten, a tenth inactive."""
     from hiprt_pt_tpu_torch.ops import traverse as plain
 
-    if kernel == "trace_incoherent":
-        _, _, bvh, dev = gpu_scene
+    if kernel in ("trace_incoherent", "trace_coherent"):
+        _, cam, bvh, dev = gpu_scene
         o, d, t_max, active = _rays(dev, n=n, seed=seed)
+        if kernel == "trace_coherent":
+            o, d = (torch.from_numpy(x[:n].copy()).to(dev)
+                    for x in tp.camera_rays_np_torch(cam, 256, 128))
         return bvh, plain.traverse, o, d, t_max, active
     bvh, dev = gpu_cornell
     rng = np.random.default_rng(seed)
@@ -351,13 +355,15 @@ def _hold_against_plain(rk, rp, active, any_hit):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("n", [16389, 77, 1])
-@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode"])
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode",
+                                    "trace_coherent"])
 def test_walk_kernels_ragged_counts(gpu_scene, gpu_cornell, kernel, n, any_hit):
-    """trace_incoherent (K1 port) and trace_meganode (K3 port) against their
-    plain walks on ray counts that are no multiple of their 128-thread
-    blocks or of a warp, with finite t_max and inactive rays: prim agreement
-    >= 0.9999 (any-hit: occlusion), t within rtol 1e-5 where the prims
-    agree, inactive rays all misses."""
+    """trace_incoherent (K1 port), trace_meganode (K3 port) and
+    trace_coherent (K2 port) against their plain walks on ray counts that
+    are no multiple of their 128-thread blocks or of a warp (so the last
+    packet of trace_coherent is ragged), with finite t_max and inactive
+    rays: prim agreement >= 0.9999 (any-hit: occlusion), t within rtol 1e-5
+    where the prims agree, inactive rays all misses."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
     bvh, walk, o, d, t_max, active = _walk_case(kernel, gpu_scene, gpu_cornell,
@@ -370,7 +376,8 @@ def test_walk_kernels_ragged_counts(gpu_scene, gpu_cornell, kernel, n, any_hit):
     _hold_against_plain(rk, rp, active, any_hit)
 
 
-@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode"])
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode",
+                                    "trace_coherent"])
 def test_walk_kernels_tiny_negative_direction_components(kernel):
     """Rays straight down onto a quad with x and z components of -1e-13,
     +1e-13, -0 and +0 (tests/test_torch_meganode.py): the kernel hits what
@@ -403,8 +410,10 @@ def test_walk_kernels_tiny_negative_direction_components(kernel):
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_incoherent_on_a_table_past_the_old_leaf_cap(any_hit):
-    """trace_incoherent against traverse on the 70,000-triangle table of
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_coherent"])
+def test_incoherent_on_a_table_past_the_old_leaf_cap(kernel, any_hit):
+    """trace_incoherent and trace_coherent against traverse on the
+    70,000-triangle table of
     tests/test_torch_routing.py (shaped like tests/test_scale.py::
     test_lane8s_beyond_old_leaf_cap), 2,048 rays: equal prims (any-hit:
     equal occlusion), t within rtol 1e-5."""
@@ -427,7 +436,7 @@ def test_incoherent_on_a_table_past_the_old_leaf_cap(any_hit):
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True)).to(dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
-    rk = ct.trace_incoherent(bvh, o, d, any_hit=any_hit)
+    rk = getattr(ct, kernel)(bvh, o, d, any_hit=any_hit)
     torch.cuda.synchronize()
     rp = plain.traverse(bvh, o, d, any_hit=any_hit)
     assert 0.1 < float((rp.prim >= 0).float().mean()) < 0.9
@@ -437,7 +446,8 @@ def test_incoherent_on_a_table_past_the_old_leaf_cap(any_hit):
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode"])
+@pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode",
+                                    "trace_coherent"])
 def test_walk_kernels_all_inactive_and_repeatable(gpu_scene, gpu_cornell,
                                                   kernel, any_hit):
     """A wavefront whose rays are all inactive comes back all misses, and
@@ -460,3 +470,104 @@ def test_walk_kernels_all_inactive_and_repeatable(gpu_scene, gpu_cornell,
     for a, b in zip((first.t, first.prim, first.u, first.v),
                     (again.t, again.prim, again.u, again.v)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("rays", ["camera", "scattered"])
+def test_coherent_packets_with_one_live_lane(gpu_scene, gpu_cornell, rays, any_hit):
+    """trace_coherent on packets that hold a single live lane (lane p mod 32
+    of packet p), every fourth packet with none: the live rays get what the
+    plain walk gives them, all others are misses, and the count of packets
+    that left packet mode stays within the packets launched."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    kernel = "trace_coherent" if rays == "camera" else "trace_incoherent"
+    bvh, walk, o, d, t_max, _ = _walk_case(kernel, gpu_scene, gpu_cornell,
+                                           8192, seed=5)
+    i = torch.arange(8192, device=o.device)
+    active = (i % 32 == (i // 32) % 32) & ((i // 32) % 4 != 3)
+    rk = ct.trace_coherent(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    left, packets = ct.coherent_packets()
+    assert packets == 256 and 0 <= left <= packets
+    rp = walk(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    assert int(active.sum()) == 192 and (rp.prim[active] >= 0).any()
+    _hold_against_plain(rk, rp, active, any_hit)
+    if not any_hit:
+        assert torch.equal(rk.prim, rp.prim)
+
+
+def _small_integer_table(S, tiles, per_lane, seed, dev):
+    """dg_gate_inputs with the table brought into [0, 16): every sum of 33
+    rounds x 19 tiles stays below 2^24, so the f32 result is exact."""
+    from hiprt_pt_tpu_torch.probes import r5probe2 as probes
+
+    tab, idx = probes.dg_gate_inputs(S, tiles, seed=seed, device=dev,
+                                     per_lane=per_lane)
+    return torch.remainder(tab, 16.0).contiguous(), idx
+
+
+@pytest.mark.parametrize("rounds", [1, 32, 33])
+@pytest.mark.parametrize("per_lane", [True, False], ids=["per-lane", "broadcast"])
+@pytest.mark.parametrize("tiles", [1, 4, 19])
+def test_dg_probe_kernel_from_shared_memory(tiles, per_lane, rounds):
+    """dg_probe_kernel (P2) with its strips in shared memory equals
+    dg_probe_plain exactly at 1, 4 and 19 tiles (S = 1,000 at one tile,
+    which no slice count divides, else the probe's 4,096), with per-lane and
+    broadcast indices, some negative, at 1 round, at the 32 of one pass and
+    at 33 (a second pass); two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.probes import r5probe2 as probes
+
+    dev = torch.device("cuda:0")
+    S = 1000 if tiles == 1 else 4096
+    tab, idx = _small_integer_table(S, tiles, per_lane, 12, dev)
+    idx = (idx - S * (idx % 5 == 0).int()).contiguous()
+    assert probes.dg_plan(S, tiles)[0] != 0
+    before = probes.launch_counts["dg_probe_kernel"]
+    got = probes.dg_probe_kernel(tab, idx, rounds)
+    again = probes.dg_probe_kernel(tab, idx, rounds)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["dg_probe_kernel"] == before + 2
+    assert float(got) == float(probes.dg_probe_plain(tab, idx, rounds))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("plan", [(0, 0), (2, 64), (2, 1024), (4, 128), (4, 512)],
+                         ids=["L2", "g2-64", "g2-1024", "g4-128", "g4-512"])
+def test_dg_probe_kernel_at_every_plan(plan):
+    """Every strip width and block size the kernel takes, and its L2
+    kernel, give dg_probe_plain's sum at S = 1,500 (no multiple of a block's
+    slices), 3 tiles, 33 rounds; a plan the kernel does not take raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.probes import r5probe2 as probes
+
+    dev = torch.device("cuda:0")
+    tab, idx = _small_integer_table(1500, 3, True, 13, dev)
+    got = probes.dg_probe_kernel(tab, idx, 33, plan)
+    torch.cuda.synchronize()
+    assert float(got) == float(probes.dg_probe_plain(tab, idx, 33))
+    for bad in ((3, 256), (4, 100), (4, 2048), (8, 256)):
+        with pytest.raises(ValueError, match="plan"):
+            probes.dg_probe_kernel(tab, idx, 33, bad)
+
+
+@pytest.mark.parametrize("per_lane", [True, False], ids=["per-lane", "broadcast"])
+def test_dg_probe_kernel_past_the_shared_memory_size(per_lane):
+    """A table of 30,000 rows has no strip that fits a block's shared
+    memory: the wrapper plans the L2 kernel, which equals dg_probe_plain
+    exactly, negative indices included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.probes import r5probe2 as probes
+
+    dev = torch.device("cuda:0")
+    S, tiles, rounds = 30000, 2, 3
+    assert probes.dg_plan(S, tiles) == (0, 0)
+    tab, idx = _small_integer_table(S, tiles, per_lane, 14, dev)
+    idx = (idx - S * (idx % 5 == 0).int()).contiguous()
+    got = probes.dg_probe_kernel(tab, idx, rounds)
+    torch.cuda.synchronize()
+    assert float(got) == float(probes.dg_probe_plain(tab, idx, rounds))

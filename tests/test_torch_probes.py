@@ -95,6 +95,61 @@ def test_dg_plain_matches_tpu_kernel(tpu_probe, tiles, per_lane, table):
     assert float(probes.dg_probe_kernel(tab, idx, DG_ROUNDS)) == got
 
 
+@pytest.mark.parametrize("table", ["integer", "float"])
+@pytest.mark.parametrize("S,rounds", [(37, 80), (50, 7), (64, 130)])
+def test_dg_plain_wraps_like_the_tpu_kernel(tpu_probe, S, rounds, table):
+    """P2's plain version against interpret-mode _dg_kernel where the row
+    index wraps: indices drawn from [-3 S, 3 S) (floor-mod, so negative ones
+    wrap upward), rounds past S and past 2 S (idx + r wraps more than once),
+    and table heights that no slice or lane-group count of the CUDA kernels
+    divides (37 is prime, 50 = 2 x 5 x 5). Exact on an integer table (one
+    tile, so that every sum stays below 2^24: 130 x 128 x 1000), rtol 1e-5
+    on a float table."""
+    tab, _ = probes.dg_gate_inputs(S, 1, seed=8, device="cpu",
+                                   integer=table == "integer")
+    idx = torch.from_numpy(np.random.default_rng(9).integers(
+        -3 * S, 3 * S, (S, probes.DG_LANES)).astype(np.int32))
+    assert (idx < 0).any() and (idx >= S).any()
+    want = _interpret(tpu_probe._dg_kernel, jnp.asarray(tab.numpy()),
+                      jnp.asarray(idx.numpy()), rounds=rounds, S=S, tiles=1)
+    got = float(probes.dg_probe_plain(tab, idx, rounds))
+    if table == "integer":
+        assert got == want
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.0)
+    # wrapped by hand: the same sum with every index brought into [0, S)
+    assert float(probes.dg_probe_plain(tab, torch.remainder(idx, S), rounds)) == got
+
+
+@pytest.mark.parametrize("S,tiles,plan", [
+    (4096, 4, (4, 1024)), (4096, 19, (4, 512)), (4096, 1, (4, 1024)),
+    (14400, 19, (4, 1024)), (14401, 19, (2, 1024)), (20000, 3, (2, 1024)),
+    (28800, 2, (2, 1024)), (28801, 2, (0, 0)), (30000, 2, (0, 0)),
+    (64, 2, (4, 1024)), (1000, 19, (4, 512))])
+def test_dg_plan(S, tiles, plan):
+    """The launch P2's wrapper plans on a 132-SM card: strips of 4 lanes
+    while S x 4 floats fit a block's shared memory, of 2 lanes up to twice
+    that height, the L2 kernel (g = 0) beyond; blocks of 1,024 threads where
+    an SM gets or holds one strip, of 512 where it holds two."""
+    g, threads = probes.dg_plan(S, tiles)
+    assert (g, threads) == plan
+    if g:
+        assert g in probes.DG_STRIPS and probes.DG_LANES % g == 0
+        assert S * g * 4 <= probes.DG_SMEM_BLOCK
+        assert threads % (32 * g) == 0 and threads <= probes.DG_MAX_THREADS
+    # a card with more SMs than strips gives every strip a whole SM
+    assert probes.dg_plan(S, tiles, sms=10 ** 6)[1] in (0, 1024)
+
+
+def test_dg_probe_kernel_on_the_cpu_ignores_the_plan():
+    tab, idx = probes.dg_gate_inputs(DG_S, 2, seed=5, device="cpu")
+    want = float(probes.dg_probe_plain(tab, idx, DG_ROUNDS))
+    before = dict(probes.launch_counts)
+    for plan in (None, (0, 0), (2, 64)):
+        assert float(probes.dg_probe_kernel(tab, idx, DG_ROUNDS, plan)) == want
+    assert probes.launch_counts == before
+
+
 @pytest.mark.parametrize("probe", ["mm-int8", "mm-bf16", "dg"])
 def test_probe_inputs_match_the_tpu_probe(probe):
     """mm_inputs / dg_inputs build the TPU probe's own inputs bit for bit
