@@ -7,14 +7,14 @@ Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
                 source: the five traversal kernels and the two probes), the
-                six earlier kernel versions of previous_kernels/ (outside
+                seven earlier kernel versions of previous_kernels/ (outside
                 the package, built only to be timed beside the versions
                 that replaced them) and the BVH build library (g++); print
                 what ptxas says of every kernel (a spill in trace_coherent,
-                trace_incoherent, trace_meganode or dg_probe_kernel fails
-                the phase), and the registers per thread, local and shared
-                memory and resident blocks per SM of the six redesigned
-                kernels in both versions.
+                trace_incoherent, trace_meganode, trace_stream8 or
+                dg_probe_kernel fails the phase), and the registers per
+                thread, local and shared memory and resident blocks per SM
+                of the seven redesigned kernels in both versions.
   Then, for each of the four paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
@@ -29,9 +29,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 1920x1080 wavefront, with finite t_max and inactive rays;
                 1,024 camera or bounce rays also against brute force; then
                 the kernel's and the plain version's time and the kernel's
-                bound on each (kernel, ray kind) at 1080p; for
-                trace_coherent, trace_incoherent, trace_meganode and
-                trace_lane8log also the earlier version (held against the
+                bound on each (kernel, ray kind) at 1080p; for every
+                traversal kernel also the earlier version (held against the
                 plain version too) timed on the same rays, in turns with
                 the new one; for trace_coherent the share of its 32-ray
                 packets that left packet mode.
@@ -172,12 +171,14 @@ PREVIOUS = {"mm_probe_mma_sync": [], "dg_probe_l2": [],
             "trace_lane8log_step": ["-fmad=false"],
             "trace_incoherent_step": ["-fmad=false"],
             "trace_meganode_packet": ["-fmad=false"],
-            "trace_coherent_block": ["-fmad=false"]}
+            "trace_coherent_block": ["-fmad=false"],
+            "trace_stream8_packet": ["-fmad=false"]}
 _previous = {}
 # traversal kernel -> (its earlier version's source, the package source of
 # the new version, whether the earlier version takes a scratch counter); the
 # C functions are hpt_prev_<kernel>[_info]
-EARLIER = {"trace_lane8log": ("trace_lane8log_step", "traverse8", True),
+EARLIER = {"trace_stream8": ("trace_stream8_packet", "traverse8", True),
+           "trace_lane8log": ("trace_lane8log_step", "traverse8", True),
            "trace_incoherent": ("trace_incoherent_step", "traverse", False),
            "trace_meganode": ("trace_meganode_packet", "traverse", False),
            "trace_coherent": ("trace_coherent_block", "traverse", False)}
@@ -260,9 +261,11 @@ def phase_build():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "warning" in line or "(C7" in line):
             log("[build] ptxas:", line.strip().replace("ptxas info    : ", ""))
+    # a walk's own stack is local memory, not a spill
     check_no_spill(cuda_build.build_log,
                    ("trace_coherent_kernel", "trace_incoherent_kernel",
-                    "trace_meganode_kernel", "dg_probe_kernel"))
+                    "trace_meganode_kernel", "trace_stream8_kernel",
+                    "dg_probe_kernel"))
     log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
         f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
         f"library {t2 - t1:.2f} s")

@@ -143,10 +143,10 @@ __device__ __forceinline__ void write_hit(int64_t i, bool any_hit, int prim,
   v_out[i] = (hit && !any_hit) ? v : 0.0f;
 }
 
-// The next two serve the per-ray walks of traverse.cu. trace_lane8log
-// (traverse8.cu) keeps its own copies of the same code: built from these it
-// took 83 registers and 5 resident blocks an SM where its own copies take
-// 80 and 6 (sm_90a, measured on an NVIDIA H100).
+// The next two serve the per-ray walks of traverse.cu. The BVH8 walk
+// (traverse8.cu) keeps its own copies of the same code: built from these
+// trace_lane8log took 83 registers and 5 resident blocks an SM where its own
+// copies take 80 and 6 (sm_90a, measured on an NVIDIA H100).
 //
 // Ray ids for the lanes of a warp that need one (`want` is their ballot):
 // one atomicAdd a warp on the global counter, consecutive ids by rank. Every

@@ -70,6 +70,7 @@ SIGNATURES = {
                  "hpt_trace_meganode": trace_args(1, True),
                  "hpt_trace_meganode_info": INFO_ARGS},
     "traverse8": {"hpt_trace_stream8": trace_args(2, True),
+                  "hpt_trace_stream8_info": INFO_ARGS,
                   "hpt_trace_lane8log": trace_args(2, True),
                   "hpt_trace_lane8log_info": INFO_ARGS},
     # mm: tab_t, idx, L, W, w_pad, l_pad, nl, rounds, groups, is_int8,

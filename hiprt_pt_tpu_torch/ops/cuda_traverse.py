@@ -20,12 +20,14 @@ wrappers — the counterpart of ``hiprt_pt_tpu/ops/pallas_traverse.py``.
   table ``bvh.nodes`` (a visit reads the row's 64 bytes of boxes and refs;
   a leaf child's triangles only when the ray hits its box); replaces
   ``_kernel`` / ``traverse_pallas`` (K3).
-- ``trace_stream8``: 128-ray packets over the BVH8 (``nodes8l`` +
-  ``leaf_rows8``), persistent blocks refilled from a global packet counter;
-  replaces ``_kernel_stream8l`` (K4).
+- ``trace_stream8``: one persistent thread per ray over the BVH8
+  (``nodes8l`` + ``leaf_rows8``), the while-while walk of
+  ``trace_lane8log`` (one template in csrc/traverse8.cu) with
+  ``trace_incoherent``'s refill of half a warp, so that a warp's rays stay
+  neighbours in a screen tile; replaces ``_kernel_stream8l`` (K4).
 - ``trace_lane8log``: one persistent thread per ray over the BVH8, refilled
-  from a global ray counter, the same while-while walk; replaces
-  ``_kernel_lane8log`` (K5).
+  from a global ray counter as soon as a ray ends, the same while-while
+  walk; replaces ``_kernel_lane8log`` (K5).
 
 Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
@@ -52,7 +54,7 @@ _KERNELS = {
     "trace_coherent": ("traverse", torch.int64, 2),
     "trace_incoherent": ("traverse", torch.int64, 1),
     "trace_meganode": ("traverse", torch.int64, 1),
-    "trace_stream8": ("traverse8", torch.int32, 1),
+    "trace_stream8": ("traverse8", torch.int64, 1),
     "trace_lane8log": ("traverse8", torch.int64, 1),
 }
 
@@ -160,8 +162,9 @@ def trace_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
 
 def trace_stream8(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                   any_hit: bool = False) -> HitRecord:
-    """128-ray packet BVH8 walk with a streaming packet refill (K4 port);
-    rays in tile-major order. Needs ``bvh.nodes8l``."""
+    """Per-ray BVH8 while-while walk for coherent rays in persistent
+    threads, refilled half a warp at a time (K4 port); rays in tile-major
+    order. Needs ``bvh.nodes8l``."""
     if o.device.type == "cpu":
         return plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit)
     return _launch("trace_stream8", bvh, o, d, t_min, t_max, active, any_hit)

@@ -106,12 +106,14 @@ def k2_variant(num, den, visits, blocks, profile=False):
 
 
 class Trace:
-    """A traversal C function on fixed rays, outputs allocated once."""
+    """A traversal C function on fixed rays, outputs allocated once; it
+    reads the BVH tables ``tables`` and takes ``extra`` after any_hit."""
 
-    def __init__(self, fn, bvh, o, d, t_min, t_max, active, any_hit, words):
+    def __init__(self, fn, bvh, o, d, t_min, t_max, active, any_hit, words,
+                 tables=("nodes4", "leaf_rows"), extra=()):
         n, dev = o.shape[0], o.device
-        self.fn, self.any_hit, self.n = fn, any_hit, n
-        self.tables = [getattr(bvh, t).data_ptr() for t in ("nodes4", "leaf_rows")]
+        self.fn, self.any_hit, self.n, self.extra = fn, any_hit, n, extra
+        self.tables = [getattr(bvh, t).data_ptr() for t in tables]
         self.rays = (o, d, per_ray(t_min, n, dev), per_ray(t_max, n, dev), active)
         # words = 0: a kernel that takes no scratch pointer
         self.scratch = torch.zeros((words,), dtype=torch.int64, device=dev)
@@ -127,7 +129,7 @@ class Trace:
         r = self.rec
         scratch = (self.scratch.data_ptr(),) if self.scratch.numel() else ()
         err = self.fn(*self.tables, *(x.data_ptr() for x in self.rays), self.n,
-                      int(self.any_hit), *scratch, r.t.data_ptr(),
+                      int(self.any_hit), *self.extra, *scratch, r.t.data_ptr(),
                       r.prim.data_ptr(), r.u.data_ptr(), r.v.data_ptr(),
                       self.stream)
         if err != 0:

@@ -1,6 +1,7 @@
 """The build table of the port's CUDA sources (ops/cuda_build.py) against
 the sources themselves, on the host: no compiler runs here."""
 
+import ctypes
 import os
 import re
 
@@ -60,7 +61,8 @@ def test_previous_kernels_stay_out_of_the_package():
     names = {f for f in os.listdir(prev) if f.endswith(".cu")}
     assert names == {"mm_probe_mma_sync.cu", "trace_lane8log_step.cu",
                      "trace_incoherent_step.cu", "trace_meganode_packet.cu",
-                     "trace_coherent_block.cu", "dg_probe_l2.cu"}
+                     "trace_coherent_block.cu", "dg_probe_l2.cu",
+                     "trace_stream8_packet.cu", "trace_stream8_toptree.cu"}
     package = {fn for sig in cuda_build.SIGNATURES.values() for fn in sig}
     for f in names:
         with open(os.path.join(prev, f)) as fh:
@@ -70,8 +72,10 @@ def test_previous_kernels_stay_out_of_the_package():
 
 
 # the earlier versions' C functions as chip_smoke.py declares them: the
-# package's argument lists, with or without the scratch words
+# package's argument lists, with or without the scratch words; the top-rows
+# variant of trace_stream8 as previous_kernels/sweep_k4.py declares it
 _DG_ARGS = cuda_build.SIGNATURES["probes"]["hpt_dg_probe"]
+_STREAM8 = cuda_build.trace_args(2, True)
 PREVIOUS_ARGS = {
     "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS},
     "dg_probe_l2": {"hpt_prev_dg_probe": _DG_ARGS[:5] + _DG_ARGS[7:]},
@@ -79,6 +83,9 @@ PREVIOUS_ARGS = {
     "trace_incoherent_step": {"hpt_prev_trace_incoherent": cuda_build.trace_args(2, False)},
     "trace_meganode_packet": {"hpt_prev_trace_meganode": cuda_build.trace_args(1, False)},
     "trace_coherent_block": {"hpt_prev_trace_coherent": cuda_build.trace_args(2, False)},
+    "trace_stream8_packet": {"hpt_prev_trace_stream8": _STREAM8},
+    "trace_stream8_toptree": {"hpt_prev_trace_stream8_toptree":
+                              _STREAM8[:9] + [ctypes.c_int] + _STREAM8[9:]},
 }
 
 
@@ -106,3 +113,24 @@ def test_trace_coherent_takes_its_scratch_words():
     probes = cuda_build.SIGNATURES["probes"]
     assert len(probes["hpt_dg_probe"]) == 10
     assert len(probes["hpt_dg_probe_info"]) == 7
+
+
+def test_trace_stream8_is_a_persistent_per_ray_walk():
+    """trace_stream8 takes the arguments of trace_lane8log, the per-ray walk
+    it shares its template with (a uint64 ray counter between any_hit and
+    the outputs), and reports its registers, memory and residency; its
+    earlier block-packet version is what chip_smoke.py loads beside it, and
+    the top-rows variant is the sweep's (previous_kernels/sweep_k4.py)."""
+    import chip_smoke
+    from hiprt_pt_tpu_torch.ops import cuda_traverse
+
+    sig = cuda_build.SIGNATURES["traverse8"]
+    assert sig["hpt_trace_stream8"] == sig["hpt_trace_lane8log"] == _STREAM8
+    assert sig["hpt_trace_stream8_info"] == cuda_build.INFO_ARGS
+    assert cuda_traverse._KERNELS["trace_stream8"] == \
+        cuda_traverse._KERNELS["trace_lane8log"]
+    text = _source("traverse8")
+    assert text.count("walk8<kAnyHit, ") == 2
+    assert chip_smoke.EARLIER["trace_stream8"] == ("trace_stream8_packet",
+                                                   "traverse8", True)
+    assert chip_smoke.PREVIOUS["trace_stream8_packet"] == ["-fmad=false"]

@@ -377,7 +377,7 @@ def test_walk_kernels_ragged_counts(gpu_scene, gpu_cornell, kernel, n, any_hit):
 
 
 @pytest.mark.parametrize("kernel", ["trace_incoherent", "trace_meganode",
-                                    "trace_coherent"])
+                                    "trace_coherent", "trace_stream8"])
 def test_walk_kernels_tiny_negative_direction_components(kernel):
     """Rays straight down onto a quad with x and z components of -1e-13,
     +1e-13, -0 and +0 (tests/test_torch_meganode.py): the kernel hits what
@@ -571,3 +571,142 @@ def test_dg_probe_kernel_past_the_shared_memory_size(per_lane):
     got = probes.dg_probe_kernel(tab, idx, rounds)
     torch.cuda.synchronize()
     assert float(got) == float(probes.dg_probe_plain(tab, idx, rounds))
+
+
+# --- trace_stream8 (K4 port): the per-ray BVH8 walk with half-warp refills ---
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tile_shadow_rays(bvh, cam, dev, width=256, height=128, seed=21):
+    """RIS-shaped shadow rays: from the camera hits of a width x height view
+    in tile order toward one light point per 128-ray tile (seeded, in the
+    hall), t_max short of the light per ray; active where the camera ray
+    hit."""
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    o_c, d_c = (torch.from_numpy(x).to(dev)
+                for x in tp.camera_rays_np_torch(cam, width, height))
+    rec = plain.traverse8(bvh, o_c, d_c, 0.0)
+    hit = rec.prim >= 0
+    p = o_c + d_c * torch.where(hit, rec.t, 0.0)[:, None] - 1e-3 * d_c
+    rng = np.random.default_rng(seed)
+    n = p.shape[0]
+    lights = rng.uniform(tp.HALL_LO, tp.HALL_HI, (-(-n // 128), 3)).astype(np.float32)
+    to = torch.from_numpy(np.repeat(lights, 128, axis=0)[:n]).to(dev) - p
+    dist = to.norm(dim=1)
+    return (p.contiguous(), (to / dist[:, None]).contiguous(),
+            (dist * (1.0 - 1e-3)).contiguous(), hit)
+
+
+@pytest.mark.parametrize("kind", ["camera-closest", "camera-any-hit",
+                                  "tile-shadow"])
+def test_stream8_on_the_rays_it_serves(gpu_scene, kind):
+    """trace_stream8 against traverse8 on camera rays in tile order (a
+    256x128 view, a tenth inactive, finite t_max on some) and on RIS-shaped
+    tile-shared any-hit rays with a per-ray t_max: prim agreement >= 0.9999
+    (any-hit: occlusion), t bit-identical where the prims agree, inactive
+    rays all misses."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    _, cam, bvh, dev = gpu_scene
+    if kind == "tile-shadow":
+        o, d, t_max, active = _tile_shadow_rays(bvh, cam, dev)
+        any_hit = True
+    else:
+        o, d = (torch.from_numpy(x).to(dev)
+                for x in tp.camera_rays_np_torch(cam, 256, 128))
+        _, _, t_max, active = _rays(dev, n=o.shape[0], seed=4)
+        any_hit = kind == "camera-any-hit"
+    before = ct.launch_counts["trace_stream8"]
+    rk = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert ct.launch_counts["trace_stream8"] == before + 1
+    rp = plain.traverse8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    _hold_against_plain(rk, rp, active, any_hit)
+    assert 0.05 < float((rk.prim >= 0).float().mean()) < 1.0
+    m = (rk.prim == rp.prim) & (rk.prim >= 0)
+    if not any_hit:
+        assert torch.equal(rk.t[m], rp.t[m])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 129, 65537])
+def test_stream8_ragged_counts(gpu_scene, n, any_hit):
+    """trace_stream8 against traverse8 on ray counts that are no multiple
+    of a warp, a tile or a block, with finite t_max and a tenth of the rays
+    inactive."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    _, _, bvh, dev = gpu_scene
+    o, d, t_max, active = _rays(dev, n=n, seed=9)
+    rk = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    torch.cuda.synchronize()
+    rp = plain.traverse8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    _hold_against_plain(rk, rp, active, any_hit)
+
+
+def test_stream8_equal_t_ties_go_to_the_smaller_prim():
+    """Two coincident quads (prims 0, 1 and 2, 3 cover the same points):
+    every ray straight down hits both at the same t, and trace_stream8, like
+    traverse8, reports the smaller prim id of the pair it hits."""
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    dev = torch.device("cuda:0")
+    verts = np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
+    quad = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    bvh = build_bvh(verts, np.concatenate([quad, quad]), dev, all_tables=True)
+    rng = np.random.default_rng(2)
+    n = 4096
+    o = np.concatenate([rng.uniform(-0.9, 0.9, (n, 1)), np.ones((n, 1)),
+                        rng.uniform(-0.9, 0.9, (n, 1))], axis=1).astype(np.float32)
+    d = np.tile(np.asarray([[0.0, -1.0, 0.0]], np.float32), (n, 1))
+    o_t, d_t = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    rk = ct.trace_stream8(bvh, o_t, d_t, 0.0)
+    rp = plain.traverse8(bvh, o_t, d_t, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(rk.prim, rp.prim) and torch.equal(rk.t, rp.t)
+    assert set(rk.prim.cpu().tolist()) == {0, 1}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream8_repeatable_and_the_earlier_kernel_agrees(gpu_scene, any_hit):
+    """Two launches on the same rays give the same bits; the earlier
+    block-packet trace_stream8 (previous_kernels/trace_stream8_packet.cu)
+    gives the same bits of t (closest hit) and the same occlusion."""
+    from hiprt_pt_tpu_torch.ops import cuda_build
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops.traverse import per_ray
+
+    _, cam, bvh, dev = gpu_scene
+    o, d = (torch.from_numpy(x).to(dev) for x in tp.camera_rays_np_torch(cam, 256, 128))
+    n = o.shape[0]
+    _, _, t_max, active = _rays(dev, n=n, seed=7)
+    first = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    again = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
+    lib, _log = cuda_build.load_source(
+        os.path.join(REPO, "previous_kernels", "trace_stream8_packet.cu"),
+        ["-fmad=false"], {"hpt_prev_trace_stream8": cuda_build.trace_args(2, True)})
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+    err = lib.hpt_prev_trace_stream8(
+        bvh.nodes8l.data_ptr(), bvh.leaf_rows8.data_ptr(), o.data_ptr(), d.data_ptr(),
+        per_ray(1e-4, n, dev).data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
+        int(any_hit), counter.data_ptr(), t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for a, b in zip((first.t, first.prim, first.u, first.v),
+                    (again.t, again.prim, again.u, again.v)):
+        assert torch.equal(a, b)
+    assert torch.equal(first.prim >= 0, prim >= 0)
+    if not any_hit:
+        assert torch.equal(first.t, t)
