@@ -15,7 +15,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 dg_probe_kernel fails the phase), and the registers per
                 thread, local and shared memory and resident blocks per SM
                 of the seven redesigned kernels in both versions.
-  Then, for each of the four paths of hiprt_pt_tpu_torch/paths.py:
+  Then, for each of the five paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
                 which must be the path's routes (paths.ROUTES).
@@ -24,8 +24,16 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 rays from the camera hits, and shadow rays from the camera
                 hits toward a point on an emissive triangle drawn as the
                 path draws it (per ray under MIS, a triangle per 128-ray
-                tile under RIS), t_max at the light. Closest and any-hit
-                (shadow rays: any-hit) on 65,536 rays and on the full
+                tile under RIS), t_max at the light; on the ReSTIR path
+                ReSTIR's visibility rays instead, in a second frame: those
+                of visibility reuse (toward the initial candidates'
+                winners, many of them occluded) and those of final shading
+                (reservoirs with temporal history, winners from
+                neighbours' reservoirs, the last spatial pass having
+                zeroed the occluded ones), and a shadow
+                wavefront with every ray inactive, as the first bounce's
+                masked RIS sends it. Closest and any-hit
+                (shadow and ReSTIR rays: any-hit) on 65,536 rays and on the full
                 1920x1080 wavefront, with finite t_max and inactive rays;
                 1,024 camera or bounce rays also against brute force; then
                 the kernel's and the plain version's time and the kernel's
@@ -41,10 +49,13 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 as many times per frame and ray kind as render/integrator.py
                 issues them.
   6. parity   — one sample at 256x128 rendered on the GPU and on the CPU
-                (plain traversal), compared per pixel; on the headline path
-                also on the GPU with use_pallas_traversal off (the plain
-                walks on the card, which must launch no kernel), compared
-                with both.
+                (plain traversal), compared per pixel; on the headline and
+                ReSTIR paths also on the GPU with use_pallas_traversal off
+                (the plain walks on the card, which must launch no kernel),
+                compared with both. The ReSTIR path renders 2 samples, so
+                that temporal reuse has a frame before it, and holds the
+                fused spatiotemporal mode's GPU render against the CPU's
+                too.
   The paths: the stress interior (259,120 triangles; trace_coherent,
   trace_incoherent), the Cornell box with seven principled spheres (35,852
   triangles; trace_meganode), the stress interior at tri_scale=14
@@ -52,7 +63,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
   the headline configuration of bench.py (the stress interior at
   tri_scale=1 with textures, the principled BSDF and RIS; trace_coherent,
   trace_incoherent; its geometry is the stress path's, so its kernel phase
-  holds only the ray kind that is new, RIS's tile-shared shadow rays).
+  holds only the ray kind that is new, RIS's tile-shared shadow rays) and
+  bench.py's ReSTIR row (the headline's scene and options with ReSTIR DI at
+  the camera vertex; trace_coherent, trace_incoherent; its kernel phase
+  holds the ray kind that is new, ReSTIR's visibility rays).
   7. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
                 r5probe2.py), a path with no frame: its entry point main()
                 at the TPU probe's shapes with the launch counts reset just
@@ -125,8 +139,18 @@ CORNELL_CASES = tuple(("trace_meganode", kind)
 STRESS14_CASES = tuple((k, kind) for k in ("trace_stream8", "trace_lane8log")
                        for kind in ("camera", "bounce", "shadow"))
 HEADLINE_CASES = (("trace_coherent", "shadow"), ("trace_incoherent", "shadow"))
+RESTIR_CASES = (("trace_coherent", "masked"), ("trace_incoherent", "initial"),
+                ("trace_incoherent", "restir"))
 PATH_CASES = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
-              ("stress14", STRESS14_CASES), ("headline", HEADLINE_CASES))
+              ("stress14", STRESS14_CASES), ("headline", HEADLINE_CASES),
+              ("restir", RESTIR_CASES))
+# the ray kinds traced any-hit only: shadow rays, the ReSTIR path's first
+# bounce's shadow rays (every one inactive) and its visibility rays (of
+# visibility reuse, "initial"; of the last spatial pass and final shading,
+# "restir")
+ANY_HIT_KINDS = ("shadow", "masked", "initial", "restir")
+# the paths whose parity phase also renders with the plain walks on the card
+PLAIN_ON_GPU = ("headline", "restir")
 # the (path, ray kind) whose ms and bound a kernel's entry in the kernels
 # line reports
 SERVES = {"trace_coherent": ("stress", "camera"),
@@ -137,10 +161,12 @@ SERVES = {"trace_coherent": ("stress", "camera"),
 # a kernel's bound (H100 SXM peak rates): f32
 # operations of the plain walk on the rays over the f32 rate, and bytes
 # (each ray in once: o, d, t_min, t_max, active = 33 B; each hit record out
-# once: t, prim, u, v = 16 B; each table once) over the memory rate
+# once: t, prim, u, v = 16 B; each table once) over the memory rate; a
+# wavefront with no active ray reads only the active flags (1 B a ray) and
+# writes the miss records
 F32_OPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
-RAY_BYTES, HIT_BYTES = 33, 16
+RAY_BYTES, HIT_BYTES, ACTIVE_BYTES = 33, 16, 1
 # a slab test: 6 sub + 6 mul, 6 min/max of the pairs, 3 + 3 min/max of the
 # entry and exit, 1 compare; a triangle test (Moller-Trumbore): two cross
 # products (18), four 3-term dots (20), the edge vector (3), u and v and t
@@ -403,7 +429,8 @@ def phase_scene(tag, dev):
         f"coherent {routes[0]}, incoherent {routes[1]}")
     expect = {"stress": (259_120, 240, 0), "cornell": (35_852, 2, 0),
               "stress14": (2_042_048, 240, 18),
-              "headline": (259_120, 240, 18)}[tag]
+              "headline": (259_120, 240, 18),
+              "restir": (259_120, 240, 18)}[tag]
     got = (scene.num_triangles, scene.num_emissives,
            0 if tex is None else tex.num_layers)
     if got != expect:
@@ -494,7 +521,8 @@ def kind_rays(scene, bvh, cam, width, height, walk, seed, tile):
     o_s, d_s, tmax_s, valid = shadow_rays(scene, p, ng, seed + 1, tile)
     return {"camera": (o_c, d_c, None, torch.ones_like(hit)),
             "bounce": (o_b, d_b, None, hit),
-            "shadow": (o_s, d_s, tmax_s, hit & valid)}
+            "shadow": (o_s, d_s, tmax_s, hit & valid),
+            "masked": (o_s, d_s, tmax_s, torch.zeros_like(hit))}
 
 
 def compare(name, rk, rp, any_hit, active):
@@ -526,12 +554,17 @@ def compare(name, rk, rp, any_hit, active):
     return err
 
 
-def bound(bvh, kernel, n, stats):
+def bound(bvh, kernel, n, n_active, stats):
     """(ms, "bytes" or "operations"): the least time the card could take for
-    the plain walk's work on n rays (see F32_OPS_PER_S above)."""
-    ops = stats["box_tests"] * SLAB_OPS + stats["tri_tests"] * TRI_OPS
-    nbytes = n * (RAY_BYTES + HIT_BYTES) + sum(
-        getattr(bvh, t).numel() * 4 for t in KERNEL_TABLES[kernel])
+    the plain walk's work on n rays, n_active of them active (see
+    F32_OPS_PER_S above)."""
+    # a walk of no active ray visits nothing and counts nothing
+    ops = stats.get("box_tests", 0) * SLAB_OPS + stats.get("tri_tests", 0) * TRI_OPS
+    if n_active:
+        nbytes = n * (RAY_BYTES + HIT_BYTES) + sum(
+            getattr(bvh, t).numel() * 4 for t in KERNEL_TABLES[kernel])
+    else:
+        nbytes = n * (ACTIVE_BYTES + HIT_BYTES)
     op_ms, byte_ms = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
     return max(op_ms, byte_ms), ("operations" if op_ms > byte_ms else "bytes")
 
@@ -547,9 +580,48 @@ def limits(n, seed, dev):
 
 
 def modes(kind):
-    """The hit modes a ray kind is held in (any_hit flags): shadow rays
-    are any-hit rays; camera and bounce rays both."""
-    return (True,) if kind == "shadow" else (False, True)
+    """The hit modes a ray kind is held in (any_hit flags): shadow and
+    ReSTIR visibility rays are any-hit rays; camera and bounce rays both."""
+    return (True,) if kind in ANY_HIT_KINDS else (False, True)
+
+
+def restir_rays(scene, cam, bvh, width, height):
+    """{kind: (o, d, t_max, active)} of the ReSTIR path's visibility rays in
+    its second frame at width x height: the renderer renders frame 1 (so the
+    reservoirs carry history), then render_step renders frame 2 with a
+    ``stage`` (render/renderer.py:restir_reuse) that forms the rays from the
+    inputs the path hands its passes: "initial" (visibility reuse's, toward
+    the initial candidates' winners) and "restir" (final shading's,
+    restir/di.py:final_visibility_rays; the last spatial pass sends the
+    same rays)."""
+    import inspect
+
+    from hiprt_pt_tpu_torch.paths import slice_options
+    from hiprt_pt_tpu_torch.render.renderer import Renderer, render_step
+    from hiprt_pt_tpu_torch.restir import di
+
+    opts, settings, world = slice_options("restir")
+    r = Renderer(scene, cam, width, height, options=opts, settings=settings,
+                 world=world, bvh=bvh, seed=42)
+    r.step()
+    rays = {}
+
+    def keep(name, fn, *args, **kw):
+        a = inspect.signature(fn).bind(*args, **kw).arguments
+        if name == "visibility reuse":
+            rays["initial"] = di.visibility_rays(a["p"], a["ng"], a["res"],
+                                                 a["active"])
+        elif name == "final shading":
+            rays["restir"] = di.final_visibility_rays(a["gbuf"], a["res"],
+                                                      a["active"])
+        return fn(*args, **kw)
+
+    render_step(opts, width, height, scene, bvh, r.state, cam, settings,
+                world, stage=keep)
+    if set(rays) != {"initial", "restir"}:
+        raise AssertionError(f"restir: the frame formed the rays {sorted(rays)}")
+    return {kind: (o.contiguous(), d.contiguous(), t_max.contiguous(), a)
+            for kind, (o, d, t_max, a) in rays.items()}
 
 
 def phase_kernels(tag, scene, cam, bvh, dev, cases):
@@ -567,6 +639,9 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
     tile = shadow_tile(tag)
     side = int(np.sqrt(PARITY_RAYS))
     rays = kind_rays(scene, bvh, cam, side, side, first_walk, 1, tile)
+    with_restir = any(kind == "restir" for _k, kind in cases)
+    if with_restir:
+        rays.update(restir_rays(scene, cam, bvh, side, side))
     tmax, act = limits(side * side, 2, dev)
     errs = {}
     plain_recs = {}
@@ -586,7 +661,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
             errs[kname] = max(errs[kname],
                               compare(tag_, rk, plain_recs[key], any_hit, a))
-        if kind == "shadow":
+        if kind in ANY_HIT_KINDS:
             continue
         # brute force on 1,024 active rays with an unbounded t_max
         sel = torch.nonzero(a & torch.isinf(tmax)).squeeze(1)[:BRUTE_RAYS]
@@ -601,6 +676,8 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
     # the full 1080p wavefront: compare with finite t_max and inactive rays,
     # then time, and compare the timed results too
     full = kind_rays(scene, bvh, cam, WIDTH, HEIGHT, first_walk, 3, tile)
+    if with_restir:
+        full.update(restir_rays(scene, cam, bvh, WIDTH, HEIGHT))
     tmax_f, act_f = limits(WIDTH * HEIGHT, 4, dev)
     plain_recs = {}
     for kname, kind in cases:
@@ -660,11 +737,12 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
                 f"{o.shape[0]} {kind} rays ({int(a.sum())} active): kernel "
                 f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{before} "
                 f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel){packets}")
-        mode = "any" if kind == "shadow" else "closest"
+        any_kind = kind in ANY_HIT_KINDS
+        mode = "any" if any_kind else "closest"
         stats = {}
-        walk(bvh, o, d, 1e-4 if kind == "shadow" else 0.0, t_max, a,
-             any_hit=kind == "shadow", stats=stats)
-        b_ms, b_by = bound(bvh, kname, o.shape[0], stats)
+        walk(bvh, o, d, 1e-4 if any_kind else 0.0, t_max, a, any_hit=any_kind,
+             stats=stats)
+        b_ms, b_by = bound(bvh, kname, o.shape[0], int(a.sum()), stats)
         rows[(tag, kname, kind)] = {
             "path": tag, "mode": mode, "ms": row[f"{mode}_ms"],
             "plain_ms": row[f"{mode}_plain_ms"], "any_ms": row["any_ms"],
@@ -693,13 +771,21 @@ def launches_per_frame(tag, scene):
     light sample when the visibility target is off and the BSDF
     candidates take the dense emissive sweep), on the coherent route at the
     first bounce and the incoherent one after, and one bounce wavefront
-    (incoherent route)."""
+    (incoherent route). Under ReSTIR DI the first bounce's RIS runs with
+    every ray masked and still traces its shadow wavefront (the RNG stream
+    stays the JAX package's), later bounces run RIS, and the camera vertex's
+    reservoir pipeline (restir/di.py) traces one visibility wavefront for
+    each of initial candidates, the last spatial pass and final shading
+    that the options switch on (incoherent route; its BSDF candidates take
+    the dense emissive sweep)."""
     from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
     from hiprt_pt_tpu_torch.lights.ris import DENSE_EMISSIVE_MAX
     from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
 
     opts, settings, _world = slice_options(tag)
-    if opts.direct_light_sampling == LightSamplingStrategy.RIS_BSDF_LIGHT and (
+    restir = opts.direct_light_sampling == LightSamplingStrategy.RESTIR_DI
+    ris = opts.direct_light_sampling == LightSamplingStrategy.RIS_BSDF_LIGHT
+    if (ris or restir) and (
             opts.ris_use_visibility_target
             or not 0 < scene.emissive_rows.shape[0] <= DENSE_EMISSIVE_MAX):
         raise AssertionError(f"{tag}: RIS traces more rays than this count has")
@@ -707,10 +793,20 @@ def launches_per_frame(tag, scene):
     bounces = min(opts.max_bounces_static, int(settings.nb_bounces))
     n_ls = max(int(settings.number_of_light_samples), 1)
     out = {}
-    for kernel, kind, n in ((coherent, "camera", 1), (coherent, "shadow", n_ls),
+    # ReSTIR's first bounce: the RIS shadow wavefront with every ray masked
+    first = "masked" if restir else "shadow"
+    for kernel, kind, n in ((coherent, "camera", 1), (coherent, first, n_ls),
                             (incoherent, "shadow", (bounces - 1) * n_ls),
                             (incoherent, "bounce", bounces)):
         out[(tag, kernel, kind)] = out.get((tag, kernel, kind), 0) + n
+    if restir:
+        rs = settings.restir_di
+        spatial = (rs.spatial_enabled and rs.num_spatial_passes > 0
+                   and not opts.restir_di_fused_spatiotemporal)
+        out[(tag, incoherent, "initial")] = int(opts.restir_di_initial_visibility)
+        out[(tag, incoherent, "restir")] = (
+            int(opts.restir_di_spatial_visibility_last_pass and spatial)
+            + int(opts.restir_di_final_visibility))
     return out
 
 
@@ -782,15 +878,17 @@ def images_agree(tag, what, got, ref, rays_got, rays_ref):
         raise AssertionError(f"{tag}: {what}: the renders disagree")
 
 
-def phase_parity(tag, scene, cam, bvh, plain_on_gpu=False):
-    """One sample at 256x128 on the GPU (kernels) and on the CPU (plain
-    walks); with ``plain_on_gpu`` also on the GPU with
-    use_pallas_traversal off, which must launch no kernel."""
+def phase_parity(tag, scene, cam, bvh):
+    """One sample at 256x128 (two on the ReSTIR path) on the GPU (kernels)
+    and on the CPU (plain walks); on the PLAIN_ON_GPU paths also on the GPU
+    with use_pallas_traversal off, which must launch no kernel; on the
+    ReSTIR path also the fused spatiotemporal mode, GPU vs CPU."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
     opts, settings, world = slice_options(tag)
+    settings = settings.replace(samples_per_frame=2 if tag == "restir" else 1)
     w, h = 256, 128
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
@@ -804,7 +902,7 @@ def phase_parity(tag, scene, cam, bvh, plain_on_gpu=False):
     gpu, rays_gpu = render(scene, cam, bvh, opts)
     ref, rays_ref = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), opts)
     images_agree(tag, "GPU vs CPU", gpu, ref, rays_gpu, rays_ref)
-    if plain_on_gpu:
+    if tag in PLAIN_ON_GPU:
         before = dict(ct.launch_counts)
         oracle, rays_o = render(scene, cam, bvh,
                                 opts.replace(use_pallas_traversal=False))
@@ -814,7 +912,14 @@ def phase_parity(tag, scene, cam, bvh, plain_on_gpu=False):
         images_agree(tag, "GPU kernels vs GPU plain walks (no launches)", gpu,
                      oracle, rays_gpu, rays_o)
         images_agree(tag, "GPU plain walks vs CPU", oracle, ref, rays_o, rays_ref)
-    log(f"[{tag} parity] {w}x{h}: {time.perf_counter() - t0:.1f} s")
+    if tag == "restir":
+        fused = opts.replace(restir_di_fused_spatiotemporal=True)
+        gpu_f, rays_gf = render(scene, cam, bvh, fused)
+        ref_f, rays_cf = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), fused)
+        images_agree(tag, "fused spatiotemporal, GPU vs CPU", gpu_f, ref_f,
+                     rays_gf, rays_cf)
+    log(f"[{tag} parity] {w}x{h}, {settings.samples_per_frame} sample(s): "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def probe_bound(cfg):
@@ -1064,6 +1169,8 @@ def phase_probes(dev):
 
 
 def main() -> int:
+    from hiprt_pt_tpu_torch import paths
+
     name = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1076,12 +1183,12 @@ def main() -> int:
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
         rows.update(r)
-        counts, per_kind = phase_slice(tag, scene, cam, bvh,
-                                       {k for k, _ in cases})
-        for k in {k for k, _ in cases}:
+        path_kernels = set(paths.ROUTES[tag])
+        counts, per_kind = phase_slice(tag, scene, cam, bvh, path_kernels)
+        for k in path_kernels:
             launches[k] = launches.get(k, 0) + counts[k]
         per_frame.update(per_kind)
-        phase_parity(tag, scene, cam, bvh, plain_on_gpu=tag == "headline")
+        phase_parity(tag, scene, cam, bvh)
         del scene, cam, bvh
         torch.cuda.empty_cache()
     p_launches, p_errs, p_rows = phase_probes(dev)

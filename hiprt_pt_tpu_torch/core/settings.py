@@ -115,6 +115,36 @@ class RISSettings:
 
 
 @dataclasses.dataclass
+class ReSTIRDISettings:
+    """Runtime knobs of ReSTIR DI (restir/di.py; reference:
+    ReSTIRDISettings.h:12-195)."""
+
+    # initial candidates
+    num_light_candidates: int = 4
+    num_bsdf_candidates: int = 1
+    # temporal pass
+    temporal_enabled: bool = True
+    temporal_max_neighbor_search: int = 8
+    temporal_neighbor_search_radius: float = 4.0
+    # permutation sampling of the exact reprojected tap
+    temporal_use_permutation_sampling: bool = False
+    m_cap: int = 25
+    # spatial passes
+    spatial_enabled: bool = True
+    num_spatial_passes: int = 2
+    spatial_radius: float = 16.0
+    num_spatial_neighbors: int = 3
+    disocclusion_boost_candidates: int = 6
+    # neighbour similarity heuristics
+    normal_similarity_threshold: float = 0.906  # cos(25deg)
+    plane_distance_threshold: float = 0.1
+    roughness_similarity_threshold: float = 0.25
+
+    def replace(self, **kw) -> "ReSTIRDISettings":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
 class RenderSettings:
     """Runtime knobs of the render step (the fields the port reads)."""
 
@@ -139,6 +169,8 @@ class RenderSettings:
     number_of_light_samples: int = 1
     freeze_random: bool = False
     ris: RISSettings = dataclasses.field(default_factory=RISSettings)
+    restir_di: ReSTIRDISettings = dataclasses.field(
+        default_factory=ReSTIRDISettings)
 
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,4 @@
-"""Render state, mirroring ``hiprt_pt_tpu.core.state`` (without the ReSTIR
-reservoirs, which the port does not carry yet).
+"""Render state, mirroring ``hiprt_pt_tpu.core.state``.
 
 Buffers are (N, ...) tensors in the canonical tile-major pixel order
 (ops/pixel_order.py). ``render_step`` returns a new state; it does not
@@ -9,6 +8,7 @@ update the old one in place.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -66,6 +66,9 @@ class RenderState:
     rays_traced: torch.Tensor         # () i64
     seed: int
     prev_view_proj: torch.Tensor      # (4,4)
+    # ReSTIR DI reservoirs (restir/reservoir.py), None unless the ReSTIR
+    # strategy runs
+    restir: Optional[object] = None
 
     @property
     def num_pixels(self) -> int:
@@ -76,13 +79,20 @@ class RenderState:
 
 
 def init_render_state(width: int, height: int, seed: int = 42,
-                      device=None) -> RenderState:
+                      device=None, with_restir: bool = False) -> RenderState:
     """A fresh render state on ``device`` (default: the GPU, see
-    core/device.py:resolve_device)."""
+    core/device.py:resolve_device); ``with_restir``: with empty ReSTIR
+    reservoirs."""
     device = resolve_device(device)
     n = width * height
     f32 = dict(dtype=torch.float32, device=device)
+    restir = None
+    if with_restir:
+        from ..restir.reservoir import Reservoir
+
+        restir = Reservoir.empty(n, device)
     return RenderState(
+        restir=restir,
         accum=torch.zeros((n, 3), **f32),
         sample_count=0,
         accum_sq_luminance=torch.zeros((n,), **f32),

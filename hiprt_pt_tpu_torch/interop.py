@@ -1,10 +1,11 @@
 """Carry scenes, BVHs and render states across from the JAX package.
 
-The JAX package's ``SceneData``, ``BVHData`` and ``RenderState`` are given as
-dicts of numpy arrays keyed by field name (nested dicts for the material
-bank and the G-buffers), so this module imports nothing of JAX. ``to_numpy``
-turns a port dataclass back into such a dict. Each ``*_from_numpy`` puts its
-tensors on ``device``: the GPU unless the caller passes ``device="cpu"``.
+The JAX package's ``SceneData``, ``BVHData``, ``RenderState`` and ReSTIR
+``Reservoir`` are given as dicts of numpy arrays keyed by field name (nested
+dicts for the material bank, the G-buffers and the reservoirs), so this
+module imports nothing of JAX. ``to_numpy`` turns a port dataclass back into
+such a dict. Each ``*_from_numpy`` puts its tensors on ``device``: the GPU
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .assets.scene import SceneData, TextureAtlas
 from .core.device import resolve_device
 from .core.material import FIELD_NAMES, MaterialBank
 from .core.state import GBuffer, RenderState
+from .restir.reservoir import Reservoir
 
 
 def _t(x, device):
@@ -122,13 +124,23 @@ def _gbuffer(d: dict, device) -> GBuffer:
                       for f in dataclasses.fields(GBuffer)})
 
 
+def reservoir_from_numpy(d: dict, device=None) -> Reservoir:
+    """Reservoir from the JAX package's reservoir fields."""
+    device = resolve_device(device)
+    return Reservoir(**{f.name: _t(d[f.name], device)
+                        for f in dataclasses.fields(Reservoir)})
+
+
 def state_from_numpy(d: dict, device=None) -> RenderState:
-    """RenderState from the JAX package's state fields (without ReSTIR)."""
-    if d.get("restir") is not None:
-        raise NotImplementedError("ReSTIR reservoirs are not ported yet")
+    """RenderState from the JAX package's state fields, with its ReSTIR
+    reservoirs when it has them."""
     device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(RenderState):
+        if f.name == "restir":
+            v = d.get(f.name)
+            kw[f.name] = None if v is None else reservoir_from_numpy(v, device)
+            continue
         v = d[f.name]
         if f.name in ("gbuffer", "prev_gbuffer"):
             kw[f.name] = _gbuffer(v, device)

@@ -4,9 +4,11 @@
   bsdf_eval(options, mats, n, wo, wi, aux)    -> (f (N,3), pdf (N,))
   bsdf_sample(options, mats, n, wo, rng, aux) -> (rng, wi, f, pdf, sample_aux)
 
-The ``bsdf_proxy_*`` functions give RIS its cheap candidate target and
-sampler (models/proxy.py); the Lambertian and Oren-Nayar overrides are cheap
-already and route to their real eval and sampler.
+The ``bsdf_proxy_*`` functions give RIS and ReSTIR their cheap candidate
+target and sampler (models/proxy.py) through a hoisted context (``_ctx``);
+``bsdf_proxy_eval`` evaluates the target without one (ReSTIR's neighbour
+surfaces). The Lambertian and Oren-Nayar overrides are cheap already and
+route to their real eval and sampler.
 """
 
 from __future__ import annotations
@@ -46,6 +48,14 @@ def bsdf_sample(options: RenderOptions, mats, n, wo, rng_state, aux=None):
             mats.base_color, mats.oren_nayar_sigma, n, wo, u1, u2)
         return rng_state, wi, f, pdf, _no_refract(n.shape[0], n.device)
     return principled.sample(options, mats, n, wo, rng_state, aux)
+
+
+def bsdf_proxy_eval(options: RenderOptions, mats, n, wo, wi, aux=None):
+    """Candidate target eval without a hoisted context (ReSTIR's m-terms at
+    neighbour surfaces). Returns (f, pdf)."""
+    if options.bsdf_override in _CHEAP:
+        return bsdf_eval(options, mats, n, wo, wi, aux)
+    return proxy.eval_pdf(mats, n, wo, wi)
 
 
 def bsdf_proxy_ctx(options: RenderOptions, mats, n, wo):

@@ -1,4 +1,4 @@
-"""The four paths that chip_smoke.py drives and profile_frame.py profiles:
+"""The five paths that chip_smoke.py drives and profile_frame.py profiles:
 each path's scene, camera, BVH and render options, at the 16:9 aspect of a
 1920x1080 frame.
 
@@ -17,6 +17,14 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   cell ``stress-1080p-principled-ris``): the stress interior at tri_scale=1
   (259,120 triangles, 120 emitters, 18 textures), the full principled BSDF,
   RIS; trace_coherent and trace_incoherent.
+- ``restir``: bench.py's ReSTIR row (bench.py:175-187; cell
+  ``stress-1080p-principled-restir``): the headline's scene and options
+  with RESTIR_DI at the camera vertex (the defaults: temporal reuse, then 2
+  spatial passes of 3 neighbours, pairwise-MIS-defensive bias correction,
+  confidence weights, the proxy target, a presampled pool of 128 x 1,024
+  lights; initial, last-spatial-pass and final visibility) and RIS at the
+  later vertices; trace_coherent and trace_incoherent (ReSTIR's visibility
+  rays take the incoherent route).
 """
 
 from __future__ import annotations
@@ -27,14 +35,16 @@ import torch
 
 from .core.device import resolve_device
 
-PATHS = ("stress", "cornell", "stress14", "headline")
+PATHS = ("stress", "cornell", "stress14", "headline", "restir")
 # the kernels that serve each path's (coherent, incoherent) rays
 ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "cornell": ("trace_meganode", "trace_meganode"),
           "stress14": ("trace_stream8", "trace_lane8log"),
-          "headline": ("trace_coherent", "trace_incoherent")}
-# the paths under RIS with the principled BSDF (bench.py's make_renderer)
-_RIS_PATHS = ("stress14", "headline")
+          "headline": ("trace_coherent", "trace_incoherent"),
+          "restir": ("trace_coherent", "trace_incoherent")}
+# the paths with the principled BSDF and textures under RIS or ReSTIR
+# (bench.py's make_renderer)
+_RIS_PATHS = ("stress14", "headline", "restir")
 ASPECT = 16 / 9
 
 
@@ -76,8 +86,9 @@ def slice_options(path: str):
     defaults, i.e. the full principled BSDF with dispersion and thin film,
     MIS NEE. The 2.04M-triangle path and the headline path: bench.py's
     make_renderer, i.e. the defaults with RIS (4 light + 1 BSDF candidate,
-    proxy target, 128-ray light tiles). All with 4 bounces, one sample per frame and ambient
-    NONE."""
+    proxy target, 128-ray light tiles). The ReSTIR path: the same with
+    RESTIR_DI and the default ReSTIRDISettings. All with 4 bounces, one
+    sample per frame and ambient NONE."""
     from .core.settings import (AmbientLightType, BSDFOverride,
                                 LightSamplingStrategy, RenderOptions,
                                 RenderSettings, WorldSettings)
@@ -93,6 +104,9 @@ def slice_options(path: str):
     if path in _RIS_PATHS:
         opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RIS_BSDF_LIGHT)
         assert opts.ris_proxy_target and opts.ris_tile_light_candidates == 128
+    if path == "restir":
+        opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RESTIR_DI)
+        assert not opts.restir_di_fused_spatiotemporal
     settings = RenderSettings(nb_bounces=4, samples_per_frame=1)
     world = WorldSettings(ambient_light_type=int(AmbientLightType.NONE))
     return opts, settings, world

@@ -1,7 +1,7 @@
 """Where one frame's time goes on the card, for one of the paths of
 paths.py (the paths chip_smoke.py drives).
 
-    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline]
+    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline|restir]
 
 Builds the path's scene (paths.load), renders one warm-up frame at
 1920x1080, then one frame under ``torch.profiler`` (CPU and CUDA
@@ -9,10 +9,13 @@ activities). Prints the frame's wall time unprofiled and profiled, the
 device's self time (the sum over device kernels) and its busy share, the
 host's launch count, and the operators and kernels with the most device
 time (operators by the device time of the kernels they launch, then the
-kernels themselves). For the two RIS paths (stress14, headline) it also
-times, with CUDA events, the parts of one RIS vertex wavefront on the
-camera pass's hits: the full ``ris_direct_lighting``, the dense emissive
-sweep and the winner's visibility ray. Needs a GPU; exits non-zero without one.
+kernels themselves). For the paths under RIS (stress14, headline, and
+restir past the camera vertex) it also times, with CUDA events, the parts
+of one RIS vertex wavefront on the camera pass's hits: the full
+``ris_direct_lighting``, the dense emissive sweep and the winner's
+visibility ray; for the ReSTIR path (restir) also each pass of the camera
+vertex's reservoir pipeline in the frame after the profiled one. Needs a
+GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -58,6 +61,26 @@ def _ris_parts(scene, cam, bvh, opts, settings):
     print(f"[ris] one RIS vertex wavefront on {int(hit.sum())} camera hits: "
           f"{ris_ms:.2f} ms; dense emissive sweep (240 emitters) "
           f"{sweep_ms:.2f} ms; one coherent any-hit ray batch {shadow_ms:.3f} ms")
+
+
+def _restir_parts(r) -> None:
+    """CUDA-event times of each pass of the ReSTIR pipeline in the next
+    frame of the renderer ``r`` (its reservoirs carry history): render_step
+    runs each pass through a ``stage`` that times it (cuda_ms: a warm-up
+    call, then three)."""
+    from .render.renderer import render_step
+
+    times = {}
+
+    def timed(name, fn, *args, **kw):
+        times[name], out = cuda_ms(lambda: fn(*args, **kw))
+        return out
+
+    st = render_step(r.options, r.width, r.height, r.scene, r.bvh, r.state,
+                     r.camera, r.settings, r.world, stage=timed)
+    hits = int((st.gbuffer.prim_index >= 0).sum())
+    print(f"[restir] one frame's reservoir pipeline on {hits} camera hits: "
+          + "; ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
 
 
 def main(path: str = "stress14") -> int:
@@ -107,8 +130,10 @@ def main(path: str = "stress14") -> int:
             print(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms "
                   f"{e.self_device_time_total / device_us:6.1%} x{e.count:6d}  "
                   f"{e.key[:110]}")
-    if path in ("stress14", "headline"):
+    if path in ("stress14", "headline", "restir"):
         _ris_parts(scene, cam, bvh, opts, settings)
+    if path == "restir":
+        _restir_parts(r)
     return 0
 
 

@@ -17,13 +17,15 @@ and lane8s gates, and past every gate). On CPU tensors each runs its plain
 PyTorch walk, and with ``RenderOptions.use_pallas_traversal`` off every ray
 takes the routed kernel's plain walk on any device (no kernel launches).
 
-Direct light is MIS NEE or RIS (lights/ris.py); textures modulate the
-materials at every vertex and normal maps the shading normals. The RNG draws
-happen in the JAX package's order: the camera pass draws jx, jy; each bounce
-draws u_lam (with ``do_dispersion``), u_alpha, then the NEE or RIS draws,
-then the BSDF sample's draws (the override's pair, or the principled BSDF's
-u_sel, u1, u2, u3), then u_rr. The host syncs once per bounce, to skip
-bounces with no live ray.
+Direct light is MIS NEE or RIS (lights/ris.py); under ReSTIR DI the camera
+vertex's direct light comes from the reservoir pipeline (restir/di.py, given
+to ``render_sample`` as ``direct0``) and every later vertex runs RIS.
+Textures modulate the materials at every vertex and normal maps the shading
+normals. The RNG draws happen in the JAX package's order: the camera pass
+draws jx, jy; each bounce draws u_lam (with ``do_dispersion``), u_alpha,
+then the NEE or RIS draws, then the BSDF sample's draws (the override's
+pair, or the principled BSDF's u_sel, u1, u2, u3), then u_rr. The host
+syncs once per bounce, to skip bounces with no live ray.
 """
 
 from __future__ import annotations
@@ -61,11 +63,8 @@ from ..ops.tonemap import luminance
 
 def check_supported(options: RenderOptions, scene) -> None:
     """Raise for the options and scene features the port does not carry yet
-    (each names its ROADMAP item)."""
-    if options.direct_light_sampling == LightSamplingStrategy.RESTIR_DI:
-        raise NotImplementedError(
-            "ReSTIR DI is not ported yet (ROADMAP: restir/); use "
-            "direct_light_sampling=MIS or RIS_BSDF_LIGHT")
+    (each names its ROADMAP item); render/renderer.py:render_step calls it
+    before any pass, ReSTIR's included."""
     if scene.envmap is not None:
         raise NotImplementedError(
             "envmaps are not ported yet (ROADMAP: assets/envmap.py)")
@@ -86,7 +85,8 @@ def check_supported(options: RenderOptions, scene) -> None:
 def _nee_enabled(options: RenderOptions) -> bool:
     return options.direct_light_sampling in (LightSamplingStrategy.UNIFORM_ONE,
                                              LightSamplingStrategy.MIS,
-                                             LightSamplingStrategy.RIS_BSDF_LIGHT)
+                                             LightSamplingStrategy.RIS_BSDF_LIGHT,
+                                             LightSamplingStrategy.RESTIR_DI)
 
 
 def _interpolate_hit(scene, prim, u, v, ray_d):
@@ -191,7 +191,10 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
         return rng_state, contrib, n_shadow
     n_ls = max(int(settings.number_of_light_samples), 1)
     inv_ls = 1.0 / n_ls
-    if options.direct_light_sampling == LightSamplingStrategy.RIS_BSDF_LIGHT:
+    # ReSTIR DI's vertices past the camera vertex run RIS (reference:
+    # Lights.h)
+    if options.direct_light_sampling in (LightSamplingStrategy.RIS_BSDF_LIGHT,
+                                         LightSamplingStrategy.RESTIR_DI):
         for _ in range(n_ls):
             rng_state, c, rays = ris_direct_lighting(
                 options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
@@ -227,12 +230,14 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
 
 def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
                   settings: RenderSettings, gbuffer: GBuffer, pixel_active,
-                  rng_state):
+                  rng_state, direct0=None):
     """Trace one full path per pixel from the G-buffer's first hit.
+    ``direct0``: the camera vertex's direct light (ReSTIR DI), which
+    replaces that vertex's NEE; the NEE there still runs with every ray
+    masked, so that the RNG stream stays the JAX package's.
 
     Returns (rng_state, radiance (N,3), aov_albedo (N,3), aov_normal (N,3),
     rays traced by this sample excluding the camera pass (() int64))."""
-    check_supported(options, scene)
     n_rays = gbuffer.position.shape[0]
     dev = gbuffer.position.device
     mats_all = scene.materials
@@ -323,9 +328,13 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         eta_rel = torch.where(entering, eta_c / n_outside_enter,
                               n_outside_exit / eta_c).clamp_min(1e-3)
         nee_active = active & ~alpha_skip
+        if direct0 is not None and bounce == 0:
+            nee_active = torch.zeros_like(nee_active)
         rng_state, direct, n_shadow = _direct_lighting(
             options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
             nee_active, eta_rel, shadow_coherent=(bounce == 0))
+        if direct0 is not None and bounce == 0:
+            direct = direct0
         radiance = radiance + torch.where(active[..., None], throughput * direct, 0.0)
 
         # --- BSDF sample + bounce ray ---
@@ -395,7 +404,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         if options.direct_light_sampling == LightSamplingStrategy.MIS:
             w_em = balance_heuristic(bsdf_pdf, light_pdf)
         elif _nee_enabled(options):
-            # pure NEE: emitter hits are already counted by the light samples
+            # pure NEE, RIS and ReSTIR: emitter hits are already counted by
+            # the light samples or the candidate pools
             w_em = torch.zeros_like(bsdf_pdf)
         else:
             w_em = torch.ones_like(bsdf_pdf)

@@ -1,11 +1,12 @@
 """Renderer — host-side orchestration around the render step, mirroring
 ``hiprt_pt_tpu.render.renderer`` (reference: GPURenderer.h:35-508).
 
-``render_step`` advances the state by one sample: camera pass, path tracing,
-accumulation and the adaptive-sampling counters. ``Renderer`` owns the
-scene, BVH, camera and settings and steps frames of ``samples_per_frame``
-samples. Work is queued on the current CUDA stream (or runs on the CPU);
-``step`` does not synchronize.
+``render_step`` advances the state by one sample: camera pass, the ReSTIR
+DI pipeline for the camera vertex (under RESTIR_DI, with reservoirs in the
+state), path tracing, accumulation and the adaptive-sampling counters.
+``Renderer`` owns the scene, BVH, camera and settings and steps frames of
+``samples_per_frame`` samples. Work is queued on the current CUDA stream
+(or runs on the CPU); ``step`` does not synchronize.
 """
 
 from __future__ import annotations
@@ -18,17 +19,84 @@ import torch
 
 from ..accel.build import BVHData, build_bvh
 from ..core import rng as rng_mod
-from ..core.settings import RenderOptions, RenderSettings, WorldSettings
+from ..core.settings import (LightSamplingStrategy, RenderOptions,
+                             RenderSettings, WorldSettings)
 from ..core.state import RenderState, init_render_state
 from ..ops.pixel_order import unscramble
+from ..ops.texture import apply_textures
 from ..ops.tonemap import luminance, resolve_accumulation
-from .integrator import camera_rays_pass, render_sample
+from ..restir import di
+from .integrator import camera_rays_pass, check_supported, render_sample
+
+
+def run_stage(_name: str, fn, *args, **kw):
+    """The default ``stage`` of ``restir_reuse``: call ``fn``."""
+    return fn(*args, **kw)
+
+
+def restir_reuse(options: RenderOptions, width: int, height: int, scene, bvh,
+                 state: RenderState, settings: RenderSettings,
+                 world: WorldSettings, gbuf, active, sample_number: int,
+                 rng_state, stage=run_stage):
+    """The ReSTIR DI pipeline for the camera vertex (reference:
+    ReSTIRDIRenderPass::launch): presampled lights, initial candidates,
+    visibility reuse, temporal reuse and the spatial passes (or the fused
+    pass), final shading. Each pass runs as ``stage(name, fn, *args,
+    **kw)``, so that a caller can time a pass or keep its inputs.
+    Returns (the new reservoirs, the camera vertex's direct light (N,3),
+    final shading's unblocked visibility rays (() int64), rng_state)."""
+    active0 = active & (gbuf.prim_index >= 0)
+    mats0 = scene.materials.at_indices(gbuf.material_id.clamp_min(0)).make_safe()
+    if scene.textures is not None:
+        # the candidates' targets and the winner's exact eval see the
+        # textured surface
+        mats0 = apply_textures(scene.textures, mats0, gbuf.uv)
+    ior = mats0.ior.clamp_min(1.0 + 1e-3)
+    eta0 = torch.where(~gbuf.backface, ior, 1.0 / ior)
+    pool = (stage("light pool", di.presample_lights, scene, sample_number,
+                  options)
+            if options.restir_do_light_presampling else None)
+    tile_id = torch.arange(width * height, dtype=torch.int32,
+                           device=gbuf.position.device) // 128
+    res, rng_state = stage(
+        "initial candidates", di.initial_candidates, options, scene, bvh,
+        world, settings, mats0, gbuf.position, gbuf.shading_normal,
+        gbuf.geometric_normal, gbuf.view_direction, eta0, active0, rng_state,
+        pool=pool, tile_id=tile_id)
+    if options.restir_di_initial_visibility:
+        res = stage("visibility reuse", di.visibility_reuse, options, bvh,
+                    gbuf.position, gbuf.geometric_normal, res, active0)
+    if options.restir_di_fused_spatiotemporal:
+        res, rng_state = stage(
+            "fused spatiotemporal reuse", di.fused_spatiotemporal_reuse,
+            options, settings, scene, mats0, gbuf, state.prev_gbuffer,
+            state.restir, res, eta0, active0, width, height,
+            state.prev_view_proj, rng_state)
+    else:
+        res, rng_state = stage(
+            "temporal reuse", di.temporal_reuse, options, settings, scene,
+            mats0, gbuf, state.prev_gbuffer, state.restir, res, eta0, active0,
+            width, height, state.prev_view_proj, rng_state)
+        rs = settings.restir_di
+        n_spatial = int(rs.num_spatial_passes) if rs.spatial_enabled else 0
+        for i in range(n_spatial):
+            res, rng_state = stage(
+                f"spatial pass {i + 1}", di.spatial_reuse_pass, options,
+                settings, scene, mats0, gbuf, res, eta0, active0, width,
+                height, rng_state, bvh=bvh, is_last_pass=i == n_spatial - 1)
+    direct, n_rays, rng_state = stage(
+        "final shading", di.final_shading, options, scene, bvh, world, mats0,
+        gbuf, res, eta0, active0, rng_state=rng_state, settings=settings)
+    return res, direct, n_rays, rng_state
 
 
 def render_step(options: RenderOptions, width: int, height: int, scene,
                 bvh: BVHData, state: RenderState, camera,
-                settings: RenderSettings, world: WorldSettings) -> RenderState:
-    """Advance the render state by one sample; returns the new state."""
+                settings: RenderSettings, world: WorldSettings,
+                stage=run_stage) -> RenderState:
+    """Advance the render state by one sample; returns the new state.
+    ``stage``: how each pass of the ReSTIR pipeline runs (restir_reuse)."""
+    check_supported(options, scene)
     sample_number = 0 if settings.freeze_random else state.sample_count
     n = width * height
     dev = state.accum.device
@@ -38,9 +106,18 @@ def render_step(options: RenderOptions, width: int, height: int, scene,
     rng_state, gbuf, active = camera_rays_pass(
         scene, bvh, camera, settings, state, width, height, sample_number,
         rng_state, options)
+    # without reservoirs in the state every vertex runs RIS, as in the JAX
+    # package
+    direct0, restir, restir_rays = None, state.restir, 0
+    if (options.direct_light_sampling == LightSamplingStrategy.RESTIR_DI
+            and state.restir is not None):
+        restir, direct0, restir_rays, rng_state = restir_reuse(
+            options, width, height, scene, bvh, state, settings, world, gbuf,
+            active, sample_number, rng_state, stage)
     rng_state, radiance, aov_albedo, aov_normal, path_rays = render_sample(
-        options, scene, bvh, world, settings, gbuf, active, rng_state)
-    total_rays = state.rays_traced + path_rays + active.sum()
+        options, scene, bvh, world, settings, gbuf, active, rng_state,
+        direct0=direct0)
+    total_rays = state.rays_traced + path_rays + restir_rays + active.sum()
 
     # --- accumulation (reference: FullPathTracer.h:296-326) ---
     act3 = active[..., None]
@@ -84,6 +161,7 @@ def render_step(options: RenderOptions, width: int, height: int, scene,
         gbuffer=gbuf,
         rays_traced=total_rays,
         prev_view_proj=camera.proj @ camera.view,
+        restir=restir,
     )
 
 
@@ -112,7 +190,10 @@ class Renderer:
             self.bvh_build_time = time.perf_counter() - t0
         self.bvh = bvh
         self.seed = seed
-        self.state = init_render_state(width, height, seed, self.device)
+        self.state = init_render_state(
+            width, height, seed, self.device,
+            with_restir=options.direct_light_sampling
+            == LightSamplingStrategy.RESTIR_DI)
 
     def step(self) -> RenderState:
         """Queue one frame of ``samples_per_frame`` samples."""

@@ -103,6 +103,8 @@ def test_interop_state_roundtrip(both):
             assert int(v) == int(ref[k]), k
         elif isinstance(v, np.ndarray):
             assert np.array_equal(v, ref[k]), k
+        elif k == "restir":  # a state without ReSTIR reservoirs
+            assert v is None and ref[k] is None
         else:
             assert v == int(ref[k]), k
 
@@ -257,22 +259,30 @@ def test_unsupported_features_raise(both):
     from hiprt_pt_tpu_torch.render.renderer import render_step
 
     opts, settings, world = _port_config()
-    for bad in (opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RESTIR_DI),
-                opts.replace(white_furnace_mode=True),
+    for bad in (opts.replace(white_furnace_mode=True),
                 opts.replace(interior_stack_strategy=ts.InteriorStackStrategy.AUTOMATIC)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_step(bad, 16, 8, both["tscene"], both["tbvh"],
                         init_render_state(16, 8, device="cpu"), both["tcam"], settings, world)
+    # ReSTIR DI is ported; envmaps are not, and render_step refuses them
+    # before any pass
+    restir = opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RESTIR_DI)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_step(restir, 16, 8, dataclasses.replace(both["tscene"], envmap=object()),
+                    both["tbvh"], init_render_state(16, 8, device="cpu", with_restir=True),
+                    both["tcam"], settings, world)
     # textures are ported; alpha textures need the alpha-aware shadow march
     scene, _cam = load_stress_scene(tri_scale=0.01, with_textures=True,
                                   device="cpu")
     assert scene.textures is not None and not scene.textures.has_alpha
     alpha = dataclasses.replace(
         scene, textures=dataclasses.replace(scene.textures, has_alpha=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_step(opts, 16, 8, alpha, both["tbvh"],
-                    init_render_state(16, 8, device="cpu"),
-                    both["tcam"], settings, world)
+    for o in (opts, restir):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_step(o, 16, 8, alpha, both["tbvh"],
+                        init_render_state(16, 8, device="cpu",
+                                          with_restir=o is restir),
+                        both["tcam"], settings, world)
 
 
 def test_port_imports_no_jax():
