@@ -15,7 +15,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 dg_probe_kernel fails the phase), and the registers per
                 thread, local and shared memory and resident blocks per SM
                 of the seven redesigned kernels in both versions.
-  Then, for each of the five paths of hiprt_pt_tpu_torch/paths.py:
+  Then, for each of the six paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
                 which must be the path's routes (paths.ROUTES).
@@ -24,7 +24,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 rays from the camera hits, and shadow rays from the camera
                 hits toward a point on an emissive triangle drawn as the
                 path draws it (per ray under MIS, a triangle per 128-ray
-                tile under RIS), t_max at the light; on the ReSTIR path
+                tile under RIS), t_max at the light; on the envmap path
+                also envmap shadow rays from the camera hits toward the
+                directions the envmap's alias table draws, t_max = inf
+                (held in both modes, t bit-identical where the prims agree,
+                and 1,024 of them against brute force); on the ReSTIR path
                 ReSTIR's visibility rays instead, in a second frame: those
                 of visibility reuse (toward the initial candidates'
                 winners, many of them occluded) and those of final shading
@@ -42,8 +46,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 plain version too) timed on the same rays, in turns with
                 the new one; for trace_coherent the share of its 32-ray
                 packets that left packet mode.
-  5. slice    — the renderer at 1920x1080, 4 bounces, with the path's
-                options (paths.slice_options): one warm-up frame and 4
+  5. slice    — the renderer at 1920x1080 with the path's options and
+                bounce count (paths.slice_options): one warm-up frame and 4
                 timed frames. Launch counts are reset just before and read
                 just after; the path's kernels, and no other, must launch,
                 as many times per frame and ray kind as render/integrator.py
@@ -55,7 +59,19 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 compared with both. The ReSTIR path renders 2 samples, so
                 that temporal reuse has a frame before it, and holds the
                 fused spatiotemporal mode's GPU render against the CPU's
-                too.
+                too; the envmap path renders with the alias table and with
+                the CDF's binary search (run_configs.py config 2's
+                strategy), GPU vs CPU, and with the plain walks on the
+                card.
+  6b. renderer — on the envmap path only, the Renderer's frame loop at
+                1920x1080: step(block=True) and its metrics beside the
+                frame's CUDA-event time, the host syncs of a step by
+                line, frame_render_done() False on a frame that ends in a
+                device sleep and True after a synchronise, render(total_samples=3) stopping at
+                max_sample_count=2, profile() (leaving the live state as it
+                was), kernel_stats() (the routed kernel's registers and
+                resident blocks from its *_info function, the launch
+                counts, the peak memory), ldr_image and aov_images.
   The paths: the stress interior (259,120 triangles; trace_coherent,
   trace_incoherent), the Cornell box with seven principled spheres (35,852
   triangles; trace_meganode), the stress interior at tri_scale=14
@@ -66,7 +82,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
   holds only the ray kind that is new, RIS's tile-shared shadow rays) and
   bench.py's ReSTIR row (the headline's scene and options with ReSTIR DI at
   the camera vertex; trace_coherent, trace_incoherent; its kernel phase
-  holds the ray kind that is new, ReSTIR's visibility rays).
+  holds the ray kind that is new, ReSTIR's visibility rays) and
+  run_configs.py's config 3 (the Cornell box with the "sky" test envmap,
+  the principled BSDF, MIS, alias-table envmap sampling with BSDF MIS, 6
+  bounces; trace_meganode, the envmap's shadow rays a new kind).
   7. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
                 r5probe2.py), a path with no frame: its entry point main()
                 at the TPU probe's shapes with the launch counts reset just
@@ -90,10 +109,13 @@ those rays at 67 TFLOP/s and the bytes of rays, hit records and tables at
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -141,16 +163,27 @@ STRESS14_CASES = tuple((k, kind) for k in ("trace_stream8", "trace_lane8log")
 HEADLINE_CASES = (("trace_coherent", "shadow"), ("trace_incoherent", "shadow"))
 RESTIR_CASES = (("trace_coherent", "masked"), ("trace_incoherent", "initial"),
                 ("trace_incoherent", "restir"))
+ENVMAP_CASES = tuple(("trace_meganode", kind)
+                     for kind in ("camera", "bounce", "shadow", "envmap"))
 PATH_CASES = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
               ("stress14", STRESS14_CASES), ("headline", HEADLINE_CASES),
-              ("restir", RESTIR_CASES))
-# the ray kinds traced any-hit only: shadow rays, the ReSTIR path's first
-# bounce's shadow rays (every one inactive) and its visibility rays (of
+              ("restir", RESTIR_CASES), ("envmap", ENVMAP_CASES))
+# the ray kinds the path traces any-hit: shadow rays, the ReSTIR path's
+# first bounce's shadow rays (every one inactive), its visibility rays (of
 # visibility reuse, "initial"; of the last spatial pass and final shading,
-# "restir")
-ANY_HIT_KINDS = ("shadow", "masked", "initial", "restir")
+# "restir") and the envmap's shadow rays ("envmap")
+ANY_HIT_KINDS = ("shadow", "masked", "initial", "restir", "envmap")
+# any-hit kinds also held in closest-hit mode, t bit-identical, and against
+# brute force: the rays to t_max = inf
+UNBOUNDED_ANY_HIT_KINDS = ("envmap",)
 # the paths whose parity phase also renders with the plain walks on the card
-PLAIN_ON_GPU = ("headline", "restir")
+PLAIN_ON_GPU = ("headline", "restir", "envmap")
+# the paths whose Renderer frame loop phase 6b drives
+RENDERER_PATHS = ("envmap",)
+# the device sleep (torch.cuda._sleep cycles, about a second on an H100)
+# that phase 6b queues at the end of a frame, so that its poll sees the
+# frame unfinished
+SLEEP_CYCLES = 2 * 10**9
 # the (path, ray kind) whose ms and bound a kernel's entry in the kernels
 # line reports
 SERVES = {"trace_coherent": ("stress", "camera"),
@@ -229,19 +262,6 @@ def phase_device() -> str:
     return name
 
 
-def _kernel_info(fn, *flags):
-    """(registers per thread, local memory bytes per thread, shared memory
-    bytes per block, resident blocks per SM) from a source's *_info
-    function."""
-    import ctypes
-
-    out = [ctypes.c_int() for _ in range(4)]
-    err = fn(*flags, *(ctypes.byref(x) for x in out))
-    if err != 0:
-        raise RuntimeError(f"kernel info failed: cudaError {err}")
-    return tuple(x.value for x in out)
-
-
 def phase_build():
     """Build every source at once; returns {kernel: {version: {mode:
     (registers, local bytes, shared bytes, blocks per SM)}}} of the
@@ -315,8 +335,9 @@ def phase_build():
         {f"{tiles} tiles": (0,) for _S, tiles in pr.DG_CONFIGS})
     info = {}
     for k, (new_fn, prev_fn, flags, prev_flags) in fns.items():
-        info[k] = {"new": {m: _kernel_info(new_fn, *f) for m, f in flags.items()},
-                   "previous": {m: _kernel_info(prev_fn, *f)
+        info[k] = {"new": {m: cuda_build.kernel_info(new_fn, *f)
+                           for m, f in flags.items()},
+                   "previous": {m: cuda_build.kernel_info(prev_fn, *f)
                                 for m, f in (prev_flags or flags).items()}}
         for ver, by_mode in info[k].items():
             for mode, (regs, local, shared, blocks) in by_mode.items():
@@ -427,15 +448,22 @@ def phase_scene(tag, dev):
         f"card {tables}, {bvh.nbytes} bytes; depth4 {bvh.depth4}, depth8 "
         f"{bvh.depth8}, depth2 {bvh.depth2}, lane8 {bvh.lane8}; routes: "
         f"coherent {routes[0]}, incoherent {routes[1]}")
-    expect = {"stress": (259_120, 240, 0), "cornell": (35_852, 2, 0),
-              "stress14": (2_042_048, 240, 18),
-              "headline": (259_120, 240, 18),
-              "restir": (259_120, 240, 18)}[tag]
+    expect = {"stress": (259_120, 240, 0, None), "cornell": (35_852, 2, 0, None),
+              "stress14": (2_042_048, 240, 18, None),
+              "headline": (259_120, 240, 18, None),
+              "restir": (259_120, 240, 18, None),
+              "envmap": (35_852, 2, 0, (64, 128, 3))}[tag]
+    env = scene.envmap
     got = (scene.num_triangles, scene.num_emissives,
-           0 if tex is None else tex.num_layers)
+           0 if tex is None else tex.num_layers,
+           None if env is None else tuple(env.texels.shape))
+    if env is not None:
+        log(f"[{tag} scene] envmap {tuple(env.texels.shape)} texels, total "
+            f"sin-weighted luminance {env.total_luminance:.3f}")
     if got != expect:
         raise AssertionError(f"the {tag} scene has (triangles, emissive "
-                             f"triangles, textures) {got}, expected {expect}")
+                             f"triangles, textures, envmap) {got}, expected "
+                             f"{expect}")
     if routes != paths.ROUTES[tag]:
         raise AssertionError(f"the {tag} scene routes to {routes}, expected "
                              f"{paths.ROUTES[tag]}")
@@ -510,24 +538,49 @@ def shadow_tile(tag):
     return None
 
 
-def kind_rays(scene, bvh, cam, width, height, walk, seed, tile):
+def envmap_rays(tag, scene, p, ng, seed):
+    """Any-hit rays from the points p toward envmap directions drawn as
+    the path's envmap NEE draws them (lights/envmap_sampling.py:
+    sample_envmap with the path's options and world, the PCG stream of
+    seed ``seed``), to t_max = inf. Returns (o, d, valid): valid where the
+    pdf is positive and the direction lies above the surface."""
+    from hiprt_pt_tpu_torch.core import rng
+    from hiprt_pt_tpu_torch.lights.envmap_sampling import sample_envmap
+    from hiprt_pt_tpu_torch.ops.intersect import offset_ray_origin
+    from hiprt_pt_tpu_torch.paths import slice_options
+
+    opts, _settings, world = slice_options(tag)
+    state = rng.seed(torch.arange(p.shape[0], device=p.device), 0, seed)
+    _state, wi, _rad, pdf = sample_envmap(opts, world, scene.envmap, state)
+    wi = wi.contiguous()
+    valid = (pdf > 0.0) & ((ng * wi).sum(-1) > 0.0)
+    return offset_ray_origin(p, ng, wi).contiguous(), wi, valid
+
+
+def kind_rays(tag, scene, bvh, cam, width, height, walk, seed, tile):
     """{kind: (o, d, t_max or None, active)} of the camera, bounce and
-    shadow rays of a width x height view; t_max None: unbounded (camera and
-    bounce rays), or the caller's; active: the camera ray hit (bounce and
-    shadow rays) and the light is valid (shadow rays)."""
+    shadow rays of a width x height view, and with an envmap its shadow
+    rays; t_max None: unbounded (camera, bounce and envmap rays), or the
+    caller's; active: the camera ray hit (bounce and shadow rays) and the
+    light is valid (shadow rays)."""
     o_c, d_c = camera_rays(cam, width, height)
     p, ng, hit = camera_hits(scene, bvh, o_c, d_c, walk)
     o_b, d_b = bounce_rays(p, ng, seed)
     o_s, d_s, tmax_s, valid = shadow_rays(scene, p, ng, seed + 1, tile)
-    return {"camera": (o_c, d_c, None, torch.ones_like(hit)),
+    rays = {"camera": (o_c, d_c, None, torch.ones_like(hit)),
             "bounce": (o_b, d_b, None, hit),
             "shadow": (o_s, d_s, tmax_s, hit & valid),
             "masked": (o_s, d_s, tmax_s, torch.zeros_like(hit))}
+    if scene.envmap is not None:
+        o_e, d_e, valid_e = envmap_rays(tag, scene, p, ng, seed + 2)
+        rays["envmap"] = (o_e, d_e, None, hit & valid_e)
+    return rays
 
 
-def compare(name, rk, rp, any_hit, active):
-    """Kernel record vs plain record; raises below the thresholds.
-    Returns the max |t| difference where the prims agree (closest hit)."""
+def compare(name, rk, rp, any_hit, active, exact_t=False):
+    """Kernel record vs plain record; raises below the thresholds, and with
+    ``exact_t`` unless t is bit-identical where the prims agree (closest
+    hit). Returns the max |t| difference where the prims agree."""
     pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
     act = active.cpu().numpy()
     if np.any(pk[~act] != -1) or np.any(np.isfinite(rk.t.cpu().numpy()[~act])):
@@ -542,6 +595,8 @@ def compare(name, rk, rp, any_hit, active):
         err = float(np.max(np.abs(tk - tp), initial=0.0))
         if not np.allclose(tk, tp, rtol=T_RTOL, atol=0.0):
             raise AssertionError(f"{name}: t differs beyond rtol {T_RTOL}")
+        if exact_t and not np.array_equal(tk, tp):
+            raise AssertionError(f"{name}: t is not bit-identical")
     log(f"[kernels] {name}: agreement {agree:.6f} over {len(pk)} rays "
         f"({int((pk >= 0).sum())} hits, {int((~act).sum())} inactive), "
         f"max |dt| {err:.3e}")
@@ -581,8 +636,11 @@ def limits(n, seed, dev):
 
 def modes(kind):
     """The hit modes a ray kind is held in (any_hit flags): shadow and
-    ReSTIR visibility rays are any-hit rays; camera and bounce rays both."""
-    return (True,) if kind in ANY_HIT_KINDS else (False, True)
+    ReSTIR visibility rays are any-hit rays; camera, bounce and envmap
+    shadow rays both."""
+    if kind in ANY_HIT_KINDS and kind not in UNBOUNDED_ANY_HIT_KINDS:
+        return (True,)
+    return (False, True)
 
 
 def restir_rays(scene, cam, bvh, width, height):
@@ -638,7 +696,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
     first_walk = getattr(plain, PLAIN[cases[0][0]])
     tile = shadow_tile(tag)
     side = int(np.sqrt(PARITY_RAYS))
-    rays = kind_rays(scene, bvh, cam, side, side, first_walk, 1, tile)
+    rays = kind_rays(tag, scene, bvh, cam, side, side, first_walk, 1, tile)
     with_restir = any(kind == "restir" for _k, kind in cases)
     if with_restir:
         rays.update(restir_rays(scene, cam, bvh, side, side))
@@ -659,23 +717,33 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
                 plain_recs[key] = walk(bvh, o, d, t_min, t_max, a, any_hit=any_hit)
             torch.cuda.synchronize()
             tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
-            errs[kname] = max(errs[kname],
-                              compare(tag_, rk, plain_recs[key], any_hit, a))
-        if kind in ANY_HIT_KINDS:
+            errs[kname] = max(errs[kname], compare(
+                tag_, rk, plain_recs[key], any_hit, a,
+                exact_t=kind in UNBOUNDED_ANY_HIT_KINDS))
+        if kind in ANY_HIT_KINDS and kind not in UNBOUNDED_ANY_HIT_KINDS:
             continue
         # brute force on 1,024 active rays with an unbounded t_max
         sel = torch.nonzero(a & torch.isinf(tmax)).squeeze(1)[:BRUTE_RAYS]
-        rk = kern(bvh, o[sel].contiguous(), d[sel].contiguous(), 0.0)
+        o_sel, d_sel = o[sel].contiguous(), d[sel].contiguous()
+        rk = kern(bvh, o_sel, d_sel, 0.0)
         bt, bp, _bu, _bv = brute_force_closest(scene.vertices, scene.triangles,
-                                               o[sel], d[sel], t_min=0.0)
+                                               o_sel, d_sel, t_min=0.0)
         rb = plain.HitRecord(t=bt, prim=bp, u=_bu, v=_bv)
-        compare(f"{kname}[{kind}, brute force]", rk, rb, False,
-                torch.ones_like(sel, dtype=torch.bool))
+        all_sel = torch.ones_like(sel, dtype=torch.bool)
+        compare(f"{kname}[{kind}, brute force]", rk, rb, False, all_sel)
+        if kind in UNBOUNDED_ANY_HIT_KINDS:
+            # occlusion to t_max = inf, as the path traces these rays
+            rk = kern(bvh, o_sel, d_sel, 1e-4, float("inf"), any_hit=True)
+            bt, bp, _bu, _bv = brute_force_closest(
+                scene.vertices, scene.triangles, o_sel, d_sel, t_min=1e-4)
+            compare(f"{kname}[{kind}, any, t_max = inf, brute force]", rk,
+                    plain.HitRecord(t=bt, prim=bp, u=_bu, v=_bv), True,
+                    all_sel)
     del plain_recs, rays
 
     # the full 1080p wavefront: compare with finite t_max and inactive rays,
     # then time, and compare the timed results too
-    full = kind_rays(scene, bvh, cam, WIDTH, HEIGHT, first_walk, 3, tile)
+    full = kind_rays(tag, scene, bvh, cam, WIDTH, HEIGHT, first_walk, 3, tile)
     if with_restir:
         full.update(restir_rays(scene, cam, bvh, WIDTH, HEIGHT))
     tmax_f, act_f = limits(WIDTH * HEIGHT, 4, dev)
@@ -693,8 +761,9 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
                 plain_recs[key] = walk(bvh, o, d, t_min, t_max, a, any_hit=any_hit)
             tag_ = (f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p, "
                     f"finite t_max]")
-            errs[kname] = max(errs[kname],
-                              compare(tag_, rk, plain_recs[key], any_hit, a))
+            errs[kname] = max(errs[kname], compare(
+                tag_, rk, plain_recs[key], any_hit, a,
+                exact_t=kind in UNBOUNDED_ANY_HIT_KINDS))
     del plain_recs
     rows, plain_ms = {}, {}
     for kname, kind in cases:
@@ -712,7 +781,9 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
                     bvh, o, d, t_min, t_max, a, any_hit=any_hit), reps=1)
             p_ms, rp = plain_ms[key]
             tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p]"
-            errs[kname] = max(errs[kname], compare(tag_, rk, rp, any_hit, a))
+            errs[kname] = max(errs[kname], compare(
+                tag_, rk, rp, any_hit, a,
+                exact_t=kind in UNBOUNDED_ANY_HIT_KINDS))
             mode = "any" if any_hit else "closest"
             row[f"{mode}_ms"], row[f"{mode}_plain_ms"] = k_ms, p_ms
             packets = ""
@@ -777,8 +848,11 @@ def launches_per_frame(tag, scene):
     reservoir pipeline (restir/di.py) traces one visibility wavefront for
     each of initial candidates, the last spatial pass and final shading
     that the options switch on (incoherent route; its BSDF candidates take
-    the dense emissive sweep)."""
+    the dense emissive sweep). With an importance-sampled envmap every
+    bounce also traces one envmap shadow wavefront (_envmap_nee,
+    incoherent route, t_max = inf)."""
     from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
+    from hiprt_pt_tpu_torch.lights.envmap_sampling import envmap_sampled
     from hiprt_pt_tpu_torch.lights.ris import DENSE_EMISSIVE_MAX
     from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
 
@@ -799,6 +873,8 @@ def launches_per_frame(tag, scene):
                             (incoherent, "shadow", (bounces - 1) * n_ls),
                             (incoherent, "bounce", bounces)):
         out[(tag, kernel, kind)] = out.get((tag, kernel, kind), 0) + n
+    if envmap_sampled(opts, scene):
+        out[(tag, incoherent, "envmap")] = bounces
     if restir:
         rs = settings.restir_di
         spatial = (rs.spatial_enabled and rs.num_spatial_passes > 0
@@ -842,7 +918,8 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     img = r.hdr_image()
     nonblack = float(np.mean(img.sum(-1) > 0.0))
     per_kind = launches_per_frame(tag, scene)
-    log(f"[{tag} slice] {WIDTH}x{HEIGHT}, 4 bounces, {frames} timed frames: "
+    log(f"[{tag} slice] {WIDTH}x{HEIGHT}, {settings.nb_bounces} bounces, "
+        f"{frames} timed frames: "
         f"{ms:.1f} ms ({ms / frames:.2f} ms/frame; {wall * 1e3:.1f} ms host "
         f"clock), {rays} rays, {rays / ms / 1e3:.3f} Mrays/s, "
         f"{frames / ms * 1e3:.3f} spp/s; peak device memory "
@@ -882,7 +959,9 @@ def phase_parity(tag, scene, cam, bvh):
     """One sample at 256x128 (two on the ReSTIR path) on the GPU (kernels)
     and on the CPU (plain walks); on the PLAIN_ON_GPU paths also on the GPU
     with use_pallas_traversal off, which must launch no kernel; on the
-    ReSTIR path also the fused spatiotemporal mode, GPU vs CPU."""
+    ReSTIR path also the fused spatiotemporal mode, GPU vs CPU; on the
+    envmap path also the CDF's binary search in place of the alias table,
+    GPU vs CPU."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
@@ -918,8 +997,120 @@ def phase_parity(tag, scene, cam, bvh):
         ref_f, rays_cf = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), fused)
         images_agree(tag, "fused spatiotemporal, GPU vs CPU", gpu_f, ref_f,
                      rays_gf, rays_cf)
+    if tag == "envmap":
+        from hiprt_pt_tpu_torch.core.settings import EnvmapSamplingStrategy
+
+        cdf = opts.replace(envmap_sampling=EnvmapSamplingStrategy.CDF_BINARY)
+        gpu_c, rays_gc = render(scene, cam, bvh, cdf)
+        ref_c, rays_cc = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), cdf)
+        images_agree(tag, "CDF_BINARY envmap sampling, GPU vs CPU", gpu_c,
+                     ref_c, rays_gc, rays_cc)
     log(f"[{tag} parity] {w}x{h}, {settings.samples_per_frame} sample(s): "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_renderer(tag, scene, cam, bvh):
+    """The Renderer's frame loop at 1920x1080 with the path's options: a
+    blocking step and its metrics beside the frame's time between CUDA
+    events, the host syncs of one step, frame_render_done() on an
+    unfinished frame and after a synchronise,
+    render() stopping at max_sample_count, profile() (the live state left
+    as it was), kernel_stats() and the images; raises on any disagreement."""
+    from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
+    from hiprt_pt_tpu_torch.render import renderer as renderer_mod
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+
+    opts, settings, world = slice_options(tag)
+    r = Renderer(scene, cam, WIDTH, HEIGHT, options=opts, settings=settings,
+                 world=world, bvh=bvh, seed=42)
+    r.step(block=True)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    r.step(block=True)
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    frame_ms, sps = r.metrics.values("frame_ms"), r.metrics.values("samples_per_s")
+    log(f"[{tag} renderer] step(block=True): metrics frame_ms {frame_ms}, "
+        f"samples_per_s {sps}; the second frame {event_ms:.2f} ms between "
+        f"CUDA events")
+    if len(frame_ms) != 2 or min(frame_ms) <= 0.0 or min(sps) <= 0.0:
+        raise AssertionError(f"{tag}: step(block=True) metrics {frame_ms} {sps}")
+    # the host syncs of one frame (each a device value read on the host or
+    # a blocking copy), by the line of the port that makes them
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+    log(f"[{tag} renderer] one step: {sum(sites.values())} host syncs, "
+        f"{json.dumps(dict(sites.most_common()))}")
+    # a frame whose last queued work is about a second of device sleep
+    # (render_step wrapped for one step), so it is unfinished when step()
+    # returns whatever the step synchronises before that
+    real_step = renderer_mod.render_step
+
+    def slow_step(*args, **kw):
+        state = real_step(*args, **kw)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return state
+
+    renderer_mod.render_step = slow_step
+    try:
+        r.step()
+        queued = r.frame_render_done()
+    finally:
+        renderer_mod.render_step = real_step
+    torch.cuda.synchronize()
+    done = r.frame_render_done()
+    log(f"[{tag} renderer] frame_render_done(): {queued} on a frame that "
+        f"ends in {SLEEP_CYCLES} cycles of sleep, {done} after a synchronise")
+    if queued or not done:
+        raise AssertionError(f"{tag}: frame_render_done() gave {queued} on "
+                             f"an unfinished frame and {done} after a "
+                             f"synchronise")
+    r.reset()
+    r.max_sample_count = 2
+    t0 = time.perf_counter()
+    r.render(total_samples=3)
+    log(f"[{tag} renderer] render(total_samples=3) with max_sample_count=2: "
+        f"{r.state.sample_count} samples, {time.perf_counter() - t0:.2f} s")
+    if r.state.sample_count != 2 or not r.is_rendering_done():
+        raise AssertionError(f"{tag}: render() stopped at "
+                             f"{r.state.sample_count} samples, not 2")
+    live, accum = r.state, r.state.accum.clone()
+    prof = r.profile(frames=2)
+    log(f"[{tag} renderer] profile(): {json.dumps(prof)}")
+    if (r.state is not live or r.state.sample_count != 2
+            or not torch.equal(r.state.accum, accum)):
+        raise AssertionError(f"{tag}: profile() changed the live state")
+    if prof["nb_bounces"] != settings.nb_bounces or not (
+            0.0 < prof["camera_pass_ms"] < prof["full_frame_ms"]):
+        raise AssertionError(f"{tag}: profile() gave {prof}")
+    stats = r.kernel_stats()
+    log(f"[{tag} renderer] kernel_stats(): {json.dumps(stats)}")
+    if set(stats["kernels"]) != set(ROUTES[tag]) or any(
+            m["registers"] <= 0 or m["blocks_per_sm"] <= 0
+            for k in stats["kernels"].values() for m in k.values()):
+        raise AssertionError(f"{tag}: kernel_stats() gave {stats['kernels']}")
+    ldr = r.ldr_image()
+    alb, nrm = r.aov_images()
+    for name, img in (("ldr", ldr), ("albedo", alb), ("normal", nrm)):
+        if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"{tag}: the {name} image is {img.shape}, "
+                                 f"finite {np.isfinite(img).all()}")
+    if ldr.min() < 0.0 or ldr.max() > 1.0:
+        raise AssertionError(f"{tag}: ldr_image() leaves [0, 1]")
+    log(f"[{tag} renderer] ldr_image mean {float(ldr.mean()):.6f}, albedo "
+        f"mean {float(alb.mean()):.6f}, normal |mean| "
+        f"{float(np.abs(nrm).mean()):.6f}")
 
 
 def probe_bound(cfg):
@@ -1189,6 +1380,8 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + counts[k]
         per_frame.update(per_kind)
         phase_parity(tag, scene, cam, bvh)
+        if tag in RENDERER_PATHS:
+            phase_renderer(tag, scene, cam, bvh)
         del scene, cam, bvh
         torch.cuda.empty_cache()
     p_launches, p_errs, p_rows = phase_probes(dev)

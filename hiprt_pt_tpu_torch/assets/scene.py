@@ -4,8 +4,8 @@
 ``build_scene`` packs the per-triangle hit attributes (``tri_data``) and the
 emissive-triangle sampling tables in numpy with the JAX package's numbers,
 then moves them to ``device``. Textures come as a ``TextureAtlas``
-(assets/textures.py); envmaps are not ported yet, so ``envmap`` stays
-``None``.
+(assets/textures.py), an environment map as an ``EnvmapData``
+(assets/envmap.py:build_envmap).
 """
 
 from __future__ import annotations
@@ -31,6 +31,13 @@ TEXTURE_KIND_FIELDS = {
     "sheen": "sheen_texture_index",
     "trans": "specular_transmission_texture_index",
 }
+
+
+def _tensors_to(obj, device) -> dict:
+    """Each tensor field of the dataclass ``obj``, moved to ``device``."""
+    return {f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)}
 
 
 @dataclasses.dataclass
@@ -62,10 +69,22 @@ class TextureAtlas:
         return self.widths.shape[0]
 
     def to(self, device) -> "TextureAtlas":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+        return dataclasses.replace(self, **_tensors_to(self, device))
+
+
+@dataclasses.dataclass
+class EnvmapData:
+    """Equirectangular environment map and its sampling tables (reference:
+    OrochiEnvmap.cpp:30-66), built by assets/envmap.py:build_envmap."""
+
+    texels: torch.Tensor         # (H,W,3) f32 linear radiance
+    cdf: torch.Tensor            # (H*W,) f32 luminance CDF (CDF_BINARY)
+    alias_probas: torch.Tensor   # (H*W,) f32 Vose alias table (ALIAS_TABLE)
+    alias_indices: torch.Tensor  # (H*W,) i32
+    total_luminance: float
+
+    def to(self, device) -> "EnvmapData":
+        return dataclasses.replace(self, **_tensors_to(self, device))
 
 
 @dataclasses.dataclass
@@ -92,7 +111,7 @@ class SceneData:
     emissive_rows: torch.Tensor
     emissive_slot_of_tri: torch.Tensor  # (T,) i32, -1 = not emissive
     emissive_total_area: float
-    envmap: Optional[object] = None
+    envmap: Optional[EnvmapData] = None
     textures: Optional[object] = None
 
     @property
@@ -100,12 +119,11 @@ class SceneData:
         return self.triangles.shape[0]
 
     def to(self, device) -> "SceneData":
-        kw = {f.name: getattr(self, f.name).to(device)
-              for f in dataclasses.fields(self)
-              if isinstance(getattr(self, f.name), torch.Tensor)}
+        kw = _tensors_to(self, device)
         textures = None if self.textures is None else self.textures.to(device)
+        envmap = None if self.envmap is None else self.envmap.to(device)
         return dataclasses.replace(self, materials=self.materials.to(device),
-                                   textures=textures, **kw)
+                                   textures=textures, envmap=envmap, **kw)
 
 
 def vose_alias(weights: np.ndarray):
@@ -166,6 +184,7 @@ def build_scene(vertices: np.ndarray, triangles: np.ndarray,
                 normals: Optional[np.ndarray] = None,
                 uvs: Optional[np.ndarray] = None,
                 textures: Optional[TextureAtlas] = None,
+                envmap: Optional[EnvmapData] = None,
                 device=None) -> SceneData:
     """Assemble a SceneData on ``device`` (default: the GPU, see
     core/device.py:resolve_device) from host numpy arrays; derives the
@@ -291,6 +310,7 @@ def build_scene(vertices: np.ndarray, triangles: np.ndarray,
         emissive_rows=t(em_rows),
         emissive_slot_of_tri=t(slot_of_tri),
         emissive_total_area=float(total_area),
+        envmap=None if envmap is None else envmap.to(device),
         textures=None if textures is None
         else texture_kinds(textures, materials).to(device),
     )

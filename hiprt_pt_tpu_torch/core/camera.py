@@ -120,3 +120,56 @@ def generate_camera_rays(camera: Camera, width: int, height: int,
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
     origins = camera.position.expand(n, 3).contiguous()
     return origins, dirs
+
+
+# --- interactive camera operations (reference: Camera zoom/rotate/translate,
+# src/Scene/Camera.h:27-87 and the mouse and keyboard interactors); each
+# returns a new camera on the same device ---
+
+
+def _decompose(camera: Camera):
+    vi = camera.view_inv.cpu().numpy().copy()
+    proj = camera.proj.cpu().numpy()
+    aspect = proj[1, 1] / proj[0, 0]
+    return vi, camera.vfov, float(aspect), camera.near, camera.far
+
+
+def _recompose(camera: Camera, vi, vfov, aspect, near, far) -> Camera:
+    return Camera.create(np.linalg.inv(vi), vfov, aspect, near, far,
+                         do_jitter=camera.do_jitter,
+                         device=camera.view_inv.device)
+
+
+def camera_rotate(camera: Camera, yaw_rad: float, pitch_rad: float) -> Camera:
+    """First-person look rotation (reference: mouse-drag rotation): yaw
+    about world +Y, pitch about the camera's right axis."""
+    vi, vfov, aspect, near, far = _decompose(camera)
+    cy, sy = np.cos(yaw_rad), np.sin(yaw_rad)
+    cp, sp = np.cos(pitch_rad), np.sin(pitch_rad)
+    yaw = np.asarray([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+    k = vi[:3, 0] / np.linalg.norm(vi[:3, 0])
+    K = np.asarray([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]],
+                   np.float32)
+    # Rodrigues
+    pitch = np.eye(3, dtype=np.float32) + sp * K + (1 - cp) * (K @ K)
+    vi[:3, :3] = yaw @ pitch @ vi[:3, :3]
+    return _recompose(camera, vi, vfov, aspect, near, far)
+
+
+def camera_translate(camera: Camera, dx: float, dy: float, dz: float) -> Camera:
+    """Walk in camera space: +x right, +y up, -z forward (reference:
+    RenderWindowKeyboardInteractor.cpp:29-52)."""
+    vi, vfov, aspect, near, far = _decompose(camera)
+    vi[:3, 3] += vi[:3, 0] * dx + vi[:3, 1] * dy + vi[:3, 2] * dz
+    return _recompose(camera, vi, vfov, aspect, near, far)
+
+
+def camera_zoom(camera: Camera, amount: float) -> Camera:
+    """Dolly along the view direction (reference: scroll zoom)."""
+    return camera_translate(camera, 0.0, 0.0, -amount)
+
+
+def auto_camera_speed(scene_min, scene_max) -> float:
+    """Movement speed from the scene's bounding box (reference:
+    SceneParser.cpp:206)."""
+    return float(np.linalg.norm(np.asarray(scene_max) - np.asarray(scene_min))) / 100.0

@@ -122,6 +122,9 @@ class ReSTIRDISettings:
     # initial candidates
     num_light_candidates: int = 4
     num_bsdf_candidates: int = 1
+    # the share of light candidates drawn from the envmap, when the scene
+    # has one and envmap sampling is on
+    envmap_candidate_probability: float = 0.25
     # temporal pass
     temporal_enabled: bool = True
     temporal_max_neighbor_search: int = 8
@@ -161,7 +164,10 @@ class RenderSettings:
     enable_adaptive_sampling: bool = False
     adaptive_sampling_min_samples: int = 64
     adaptive_sampling_noise_threshold: float = 0.1
+    # stop conditions (Renderer.is_rendering_done): with a positive noise
+    # threshold, stop once this share of the pixels has converged
     stop_noise_threshold: float = 0.0
+    stop_pixel_percentage_converged: float = 0.9
     render_low_resolution: bool = False
     low_resolution_scale: int = 4
     do_alpha_testing: bool = True
@@ -176,12 +182,20 @@ class RenderSettings:
         return dataclasses.replace(self, **kw)
 
 
+_IDENTITY3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+
 @dataclasses.dataclass
 class WorldSettings:
-    """Ambient lighting controls (the fields the port reads)."""
+    """Ambient lighting controls (reference: WorldSettings.h:17-53). The
+    envmap texture and its sampling tables live in ``SceneData.envmap``;
+    the rotations are 3x3 row tuples."""
 
     ambient_light_type: int = int(AmbientLightType.UNIFORM)
     uniform_light_color: tuple = (0.5, 0.5, 0.5)
+    envmap_intensity: float = 1.0
+    envmap_to_world: tuple = _IDENTITY3
+    world_to_envmap: tuple = _IDENTITY3
 
     def replace(self, **kw) -> "WorldSettings":
         return dataclasses.replace(self, **kw)

@@ -1,7 +1,8 @@
 """Carry scenes, BVHs and render states across from the JAX package.
 
-The JAX package's ``SceneData``, ``BVHData``, ``RenderState`` and ReSTIR
-``Reservoir`` are given as dicts of numpy arrays keyed by field name (nested
+The JAX package's ``SceneData`` (with its texture atlas and envmap),
+``BVHData``, ``RenderState``, ReSTIR ``Reservoir`` and ``WorldSettings`` are
+given as dicts of numpy arrays keyed by field name (nested
 dicts for the material bank, the G-buffers and the reservoirs), so this
 module imports nothing of JAX. ``to_numpy`` turns a port dataclass back into
 such a dict. Each ``*_from_numpy`` puts its tensors on ``device``: the GPU
@@ -17,9 +18,10 @@ import torch
 
 from .accel.build import (MAX_MEGANODE_ROWS, BVHData, Lane8Sizes, depth8_of,
                           meganode_depth)
-from .assets.scene import SceneData, TextureAtlas
+from .assets.scene import EnvmapData, SceneData, TextureAtlas
 from .core.device import resolve_device
 from .core.material import FIELD_NAMES, MaterialBank
+from .core.settings import WorldSettings
 from .core.state import GBuffer, RenderState
 from .restir.reservoir import Reservoir
 
@@ -39,11 +41,32 @@ def atlas_from_numpy(d: dict, device=None) -> TextureAtlas:
     return TextureAtlas(**kw)
 
 
+def envmap_from_numpy(d: dict, device=None) -> EnvmapData:
+    """EnvmapData from the JAX package's envmap fields."""
+    device = resolve_device(device)
+    return EnvmapData(
+        total_luminance=float(np.asarray(d["total_luminance"])),
+        **{k: _t(d[k], device)
+           for k in ("texels", "cdf", "alias_probas", "alias_indices")})
+
+
+def world_from_numpy(d: dict) -> WorldSettings:
+    """WorldSettings (host values) from the JAX package's world fields."""
+    def rows(x):
+        return tuple(tuple(float(c) for c in r) for r in np.asarray(x))
+
+    return WorldSettings(
+        ambient_light_type=int(np.asarray(d["ambient_light_type"])),
+        uniform_light_color=tuple(
+            float(c) for c in np.asarray(d["uniform_light_color"])),
+        envmap_intensity=float(np.asarray(d["envmap_intensity"])),
+        envmap_to_world=rows(d["envmap_to_world"]),
+        world_to_envmap=rows(d["world_to_envmap"]))
+
+
 def scene_from_numpy(d: dict, device=None) -> SceneData:
     """SceneData from the JAX package's scene fields, with its texture
-    atlas. Envmaps are not ported, so the scene must have none."""
-    if d.get("envmap") is not None:
-        raise NotImplementedError("envmaps are not ported yet")
+    atlas and envmap."""
     device = resolve_device(device)
     mats = MaterialBank(**{k: _t(d["materials"][k], device) for k in FIELD_NAMES})
     kw = {}
@@ -60,7 +83,10 @@ def scene_from_numpy(d: dict, device=None) -> SceneData:
     textures = d.get("textures")
     if textures is not None:
         textures = atlas_from_numpy(textures, device)
-    return SceneData(materials=mats, textures=textures, **kw)
+    envmap = d.get("envmap")
+    if envmap is not None:
+        envmap = envmap_from_numpy(envmap, device)
+    return SceneData(materials=mats, textures=textures, envmap=envmap, **kw)
 
 
 def bvh4_depth(nodes4: np.ndarray) -> int:

@@ -141,6 +141,17 @@ def load_libraries() -> dict:
         return _libs
 
 
+def kernel_info(fn, *flags) -> tuple:
+    """(registers per thread, local memory bytes per thread, shared memory
+    bytes per block, resident blocks per SM) from a source's *_info
+    function ``fn`` called with ``flags``; raises if the call fails."""
+    out = [ctypes.c_int() for _ in range(4)]
+    err = fn(*flags, *(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"kernel info failed: cudaError {err}")
+    return tuple(x.value for x in out)
+
+
 def check_tensor(name, t, dtype, shape, device):
     """Raise unless ``t`` lies on ``device`` with the dtype ``dtype`` (or
     one of a tuple of them) and the shape ``shape``, contiguous."""

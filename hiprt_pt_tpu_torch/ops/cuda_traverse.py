@@ -64,6 +64,11 @@ launch_counts = {k: 0 for k in _KERNELS}
 _coherent_last: list = []
 
 
+def source_of(kernel: str) -> str:
+    """The source (cuda_build.SOURCES) that holds ``kernel``."""
+    return _KERNELS[kernel][0]
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0

@@ -65,3 +65,21 @@ def sample_triangle(v0, e1, e2, u1, u2):
 
 def balance_heuristic(pdf_a, pdf_b):
     return pdf_a / (pdf_a + pdf_b).clamp_min(1e-12)
+
+
+def sphere_to_equirect_uv(d):
+    """Unit direction → equirectangular (u, v) in [0,1)^2; v = 0 is the +Y
+    pole (the reference's envmap parameterization, Envmap.h)."""
+    theta = torch.arccos(d[..., 1].clamp(-1.0, 1.0))
+    phi = torch.atan2(d[..., 2], d[..., 0])
+    u = torch.remainder(phi / TWO_PI, 1.0)
+    v = theta / math.pi
+    return u, v
+
+
+def equirect_uv_to_sphere(u, v):
+    theta = v * math.pi
+    phi = u * TWO_PI
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), torch.cos(theta),
+                        st * torch.sin(phi)], dim=-1)

@@ -1,4 +1,4 @@
-"""The five paths that chip_smoke.py drives and profile_frame.py profiles:
+"""The six paths that chip_smoke.py drives and profile_frame.py profiles:
 each path's scene, camera, BVH and render options, at the 16:9 aspect of a
 1920x1080 frame.
 
@@ -25,6 +25,15 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   lights; initial, last-spatial-pass and final visibility) and RIS at the
   later vertices; trace_coherent and trace_incoherent (ReSTIR's visibility
   rays take the incoherent route).
+- ``envmap``: benchmarks/run_configs.py's config 3
+  (``3-principled-alias-envmap``, run_configs.py:167-181; cell
+  ``cornell-1080p-principled-envmap``) on the Cornell path's scene (its
+  glTF scene is absent): the procedural Cornell box with its emitters and
+  ``build_envmap(make_test_envmap(64, 128, "sky"))``, whose light enters
+  through the box's open front; the full principled BSDF, MIS NEE,
+  ALIAS_TABLE envmap sampling with BSDF MIS, 6 bounces, ambient ENVMAP at
+  intensity 1 and identity rotations; every ray, the envmap's any-hit
+  shadow rays to t_max = inf among them, goes through trace_meganode.
 """
 
 from __future__ import annotations
@@ -35,13 +44,14 @@ import torch
 
 from .core.device import resolve_device
 
-PATHS = ("stress", "cornell", "stress14", "headline", "restir")
+PATHS = ("stress", "cornell", "stress14", "headline", "restir", "envmap")
 # the kernels that serve each path's (coherent, incoherent) rays
 ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "cornell": ("trace_meganode", "trace_meganode"),
           "stress14": ("trace_stream8", "trace_lane8log"),
           "headline": ("trace_coherent", "trace_incoherent"),
-          "restir": ("trace_coherent", "trace_incoherent")}
+          "restir": ("trace_coherent", "trace_incoherent"),
+          "envmap": ("trace_meganode", "trace_meganode")}
 # the paths with the principled BSDF and textures under RIS or ReSTIR
 # (bench.py's make_renderer)
 _RIS_PATHS = ("stress14", "headline", "restir")
@@ -54,6 +64,7 @@ def load(path: str, device=None):
     scene, "bvh": building the BVH and moving its tables to the device}."""
     from .accel.build import build_bvh
     from .assets.cornell import cornell_spheres_arrays
+    from .assets.envmap import build_envmap, make_test_envmap
     from .assets.scene import build_scene
     from .assets.stress import load_stress_scene
     from .core.camera import camera_from_lookat
@@ -63,9 +74,12 @@ def load(path: str, device=None):
         raise ValueError(f"unknown path {path!r}; the paths are {PATHS}")
     device = resolve_device(device)
     t0 = time.perf_counter()
-    if path == "cornell":
+    if path in ("cornell", "envmap"):
         v, f, m, rows, cam_kw = cornell_spheres_arrays(ASPECT)
-        scene = build_scene(v, f, m, MaterialBank.from_rows(rows), device=device)
+        envmap = (build_envmap(make_test_envmap(64, 128, "sky"), device=device)
+                  if path == "envmap" else None)
+        scene = build_scene(v, f, m, MaterialBank.from_rows(rows),
+                            envmap=envmap, device=device)
         cam = camera_from_lookat(**cam_kw, device=device)
     else:
         scene, cam = load_stress_scene(
@@ -87,11 +101,14 @@ def slice_options(path: str):
     MIS NEE. The 2.04M-triangle path and the headline path: bench.py's
     make_renderer, i.e. the defaults with RIS (4 light + 1 BSDF candidate,
     proxy target, 128-ray light tiles). The ReSTIR path: the same with
-    RESTIR_DI and the default ReSTIRDISettings. All with 4 bounces, one
-    sample per frame and ambient NONE."""
+    RESTIR_DI and the default ReSTIRDISettings. All these with 4 bounces,
+    one sample per frame and ambient NONE. The envmap path: run_configs.py's
+    config 3, i.e. the Cornell path's options with ALIAS_TABLE envmap
+    sampling and BSDF MIS, 6 bounces, one sample per frame and ambient
+    ENVMAP."""
     from .core.settings import (AmbientLightType, BSDFOverride,
-                                LightSamplingStrategy, RenderOptions,
-                                RenderSettings, WorldSettings)
+                                EnvmapSamplingStrategy, LightSamplingStrategy,
+                                RenderOptions, RenderSettings, WorldSettings)
 
     opts = RenderOptions(direct_light_sampling=LightSamplingStrategy.MIS,
                          max_bounces_static=4)
@@ -107,6 +124,11 @@ def slice_options(path: str):
     if path == "restir":
         opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RESTIR_DI)
         assert not opts.restir_di_fused_spatiotemporal
+    if path == "envmap":
+        opts = opts.replace(envmap_sampling=EnvmapSamplingStrategy.ALIAS_TABLE,
+                            envmap_bsdf_mis=True, max_bounces_static=6)
+        return (opts, RenderSettings(nb_bounces=6, samples_per_frame=1),
+                WorldSettings(ambient_light_type=int(AmbientLightType.ENVMAP)))
     settings = RenderSettings(nb_bounces=4, samples_per_frame=1)
     world = WorldSettings(ambient_light_type=int(AmbientLightType.NONE))
     return opts, settings, world

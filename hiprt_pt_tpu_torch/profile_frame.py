@@ -1,7 +1,7 @@
 """Where one frame's time goes on the card, for one of the paths of
 paths.py (the paths chip_smoke.py drives).
 
-    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline|restir]
+    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline|restir|envmap]
 
 Builds the path's scene (paths.load), renders one warm-up frame at
 1920x1080, then one frame under ``torch.profiler`` (CPU and CUDA

@@ -4,8 +4,10 @@
 - ``camera_rays_pass`` ≡ the reference's CameraRays kernel: jittered primary
   rays, first-hit trace, G-buffer write.
 - ``render_sample`` ≡ the FullPathTracer megakernel: NEE with MIS per vertex,
-  BSDF sampling, the nested-dielectric interior stack, russian roulette,
-  miss → ambient, NaN guard.
+  envmap NEE, BSDF sampling, the nested-dielectric interior stack (by
+  priorities, or AUTOMATIC by parity), russian roulette, miss → ambient or
+  the envmap under MIS, NaN guard; white-furnace mode; per-bounce alive
+  counts on request.
 
 The whole image is one wavefront of N rays in the tile-major pixel order.
 Traversal routes in the JAX package's order (``_make_tracers``) through
@@ -19,13 +21,17 @@ takes the routed kernel's plain walk on any device (no kernel launches).
 
 Direct light is MIS NEE or RIS (lights/ris.py); under ReSTIR DI the camera
 vertex's direct light comes from the reservoir pipeline (restir/di.py, given
-to ``render_sample`` as ``direct0``) and every later vertex runs RIS.
+to ``render_sample`` as ``direct0``) and every later vertex runs RIS. With
+an envmap and envmap sampling on, every vertex also draws one envmap
+direction (lights/envmap_sampling.py) and traces its any-hit shadow ray to
+t_max = inf on the incoherent route, under every light strategy.
 Textures modulate the materials at every vertex and normal maps the shading
 normals. The RNG draws happen in the JAX package's order: the camera pass
 draws jx, jy; each bounce draws u_lam (with ``do_dispersion``), u_alpha,
-then the NEE or RIS draws, then the BSDF sample's draws (the override's
-pair, or the principled BSDF's u_sel, u1, u2, u3), then u_rr. The host
-syncs once per bounce, to skip bounces with no live ray.
+then the NEE or RIS draws, the envmap sample's draws, then the BSDF
+sample's draws (the override's pair, or the principled BSDF's u_sel, u1,
+u2, u3), then u_rr. The host syncs once per bounce, to skip bounces with no
+live ray.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from ..core import rng as rng_mod
 from ..core.camera import generate_camera_rays
 from ..core.settings import (
+    AmbientLightType,
     InteriorStackStrategy,
     LightSamplingStrategy,
     RenderOptions,
@@ -43,7 +50,9 @@ from ..core.settings import (
     WorldSettings,
 )
 from ..core.state import GBuffer
-from ..lights.envmap_sampling import eval_envmap
+from ..lights.envmap_sampling import (envmap_pdf_of_direction,
+                                      envmap_sampled, eval_envmap,
+                                      sample_envmap)
 from ..lights.light_sampling import (
     emissive_pdf_of_direction,
     sample_emissive_triangle,
@@ -61,25 +70,14 @@ from ..ops.texture import apply_normal_map, apply_textures
 from ..ops.tonemap import luminance
 
 
-def check_supported(options: RenderOptions, scene) -> None:
-    """Raise for the options and scene features the port does not carry yet
-    (each names its ROADMAP item); render/renderer.py:render_step calls it
-    before any pass, ReSTIR's included."""
-    if scene.envmap is not None:
-        raise NotImplementedError(
-            "envmaps are not ported yet (ROADMAP: assets/envmap.py)")
+def check_supported(scene) -> None:
+    """Raise for the scene features the port does not carry yet (naming
+    their ROADMAP item); render/renderer.py:render_step calls it before any
+    pass, ReSTIR's included."""
     if scene.textures is not None and scene.textures.has_alpha:
         raise NotImplementedError(
             "alpha textures need the alpha-aware shadow march, which is not "
             "ported yet (ROADMAP: ops/traverse.py occluded_alpha)")
-    if options.interior_stack_strategy != InteriorStackStrategy.WITH_PRIORITIES:
-        raise NotImplementedError(
-            "only the WITH_PRIORITIES interior stack is ported (ROADMAP: "
-            "integrator options, AUTOMATIC interior stack)")
-    if options.white_furnace_mode:
-        raise NotImplementedError(
-            "white-furnace mode is not ported yet (ROADMAP: integrator "
-            "options, white-furnace mode)")
 
 
 def _nee_enabled(options: RenderOptions) -> bool:
@@ -175,20 +173,19 @@ def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
     return rng_state, gbuf, active
 
 
-def _direct_lighting(options: RenderOptions, scene, bvh,
+def _direct_lighting(options: RenderOptions, scene, bvh, world: WorldSettings,
                      settings: RenderSettings, mats, p, ns, ng, wo,
                      rng_state, active, eta_rel=None,
                      shadow_coherent: bool = False):
-    """Direct light at one path vertex, ``number_of_light_samples`` times
-    averaged: RIS over light and BSDF candidates (lights/ris.py), or NEE of
-    power-sampled emissive triangles, MIS-weighted against the BSDF.
-    ``shadow_coherent``: the shadow rays are screen-tile coherent (the
-    camera vertex). Returns (rng_state, radiance (N,3), shadow-ray count
-    (() int64 tensor))."""
+    """Direct light at one path vertex: emissive triangles,
+    ``number_of_light_samples`` times averaged, by RIS over light and BSDF
+    candidates (lights/ris.py) or by NEE of power-sampled emissive
+    triangles MIS-weighted against the BSDF; then one envmap sample
+    (``_envmap_nee``). ``shadow_coherent``: the emissive shadow rays are
+    screen-tile coherent (the camera vertex). Returns (rng_state, radiance
+    (N,3), shadow-ray count (() int64 tensor))."""
     contrib = torch.zeros_like(p)
     n_shadow = torch.zeros((), dtype=torch.int64, device=p.device)
-    if not _nee_enabled(options):
-        return rng_state, contrib, n_shadow
     n_ls = max(int(settings.number_of_light_samples), 1)
     inv_ls = 1.0 / n_ls
     # ReSTIR DI's vertices past the camera vertex run RIS (reference:
@@ -202,7 +199,27 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
             c = _clamp_contribution(c, settings.direct_contribution_clamp)
             contrib = contrib + c * inv_ls
             n_shadow = n_shadow + rays
-        return rng_state, contrib, n_shadow
+    elif _nee_enabled(options):
+        rng_state, contrib, n_shadow = _emissive_nee(
+            options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
+            active, eta_rel, shadow_coherent)
+    if envmap_sampled(options, scene):
+        rng_state, c, rays = _envmap_nee(options, scene, bvh, world, settings,
+                                         mats, p, ns, ng, wo, rng_state,
+                                         active, eta_rel)
+        contrib = contrib + c
+        n_shadow = n_shadow + rays
+    return rng_state, contrib, n_shadow
+
+
+def _emissive_nee(options: RenderOptions, scene, bvh, settings, mats, p, ns,
+                  ng, wo, rng_state, active, eta_rel, shadow_coherent):
+    """NEE of power-sampled emissive triangles, ``number_of_light_samples``
+    times averaged. Returns (rng_state, radiance (N,3), shadow rays)."""
+    contrib = torch.zeros_like(p)
+    n_shadow = torch.zeros((), dtype=torch.int64, device=p.device)
+    n_ls = max(int(settings.number_of_light_samples), 1)
+    inv_ls = 1.0 / n_ls
     occluded = _tracer(bvh, shadow_coherent, options.use_pallas_traversal)
     for _ in range(n_ls):
         rng_state, ls = sample_emissive_triangle(scene, p, rng_state)
@@ -228,21 +245,60 @@ def _direct_lighting(options: RenderOptions, scene, bvh,
     return rng_state, contrib, n_shadow
 
 
+def _envmap_nee(options: RenderOptions, scene, bvh, world: WorldSettings,
+                settings, mats, p, ns, ng, wo, rng_state, active, eta_rel):
+    """One importance-sampled envmap direction, its any-hit shadow ray to
+    t_max = inf on the incoherent route, MIS-weighted against the BSDF
+    under ``envmap_bsdf_mis`` (reference: Envmap.h
+    sample_environment_map). Returns (rng_state, radiance (N,3), shadow
+    rays)."""
+    rng_state, wi, rad, pdf = sample_envmap(options, world, scene.envmap,
+                                            rng_state)
+    cos_e = (ns * wi).sum(dim=-1)
+    f, bsdf_pdf = bsdf_eval(options, mats, ns, wo, wi, {"eta_rel": eta_rel})
+    cand = active & (cos_e > 0.0) & (pdf > 0.0)
+    if world.ambient_light_type != int(AmbientLightType.ENVMAP):
+        cand = torch.zeros_like(cand)
+    so = offset_ray_origin(p, ng, wi)
+    blocked = _tracer(bvh, False, options.use_pallas_traversal)(
+        bvh, so, wi, t_min=1e-4, t_max=float("inf"), active=cand,
+        any_hit=True).prim >= 0
+    c = f * rad * (cos_e / pdf.clamp_min(1e-12))[..., None]
+    if options.envmap_bsdf_mis:
+        c = c * balance_heuristic(pdf, bsdf_pdf)[..., None]
+    c = _clamp_contribution(c, settings.envmap_contribution_clamp)
+    return (rng_state, torch.where((cand & ~blocked)[..., None], c, 0.0),
+            cand.sum())
+
+
 def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
                   settings: RenderSettings, gbuffer: GBuffer, pixel_active,
-                  rng_state, direct0=None):
+                  rng_state, direct0=None, collect_bounce_stats: bool = False):
     """Trace one full path per pixel from the G-buffer's first hit.
     ``direct0``: the camera vertex's direct light (ReSTIR DI), which
     replaces that vertex's NEE; the NEE there still runs with every ray
-    masked, so that the RNG stream stays the JAX package's.
+    masked, so that the RNG stream stays the JAX package's. Under
+    ``options.white_furnace_mode`` the world is a uniform white and
+    emission and NEE are off: any pixel away from 1 is the BSDF's energy
+    gain or loss (reference: white furnace mode).
 
     Returns (rng_state, radiance (N,3), aov_albedo (N,3), aov_normal (N,3),
-    rays traced by this sample excluding the camera pass (() int64))."""
+    rays traced by this sample excluding the camera pass (() int64)); with
+    ``collect_bounce_stats`` also the live rays of each bounce
+    ((max(max_bounces_static, 1),) int64; reference: RenderData.h:102-113
+    still_one_ray_active, per depth)."""
     n_rays = gbuffer.position.shape[0]
     dev = gbuffer.position.device
     mats_all = scene.materials
     d0 = gbuffer.ray_dir
     hit0 = gbuffer.prim_index >= 0
+    if options.white_furnace_mode:
+        world = world.replace(ambient_light_type=int(AmbientLightType.UNIFORM),
+                              uniform_light_color=(1.0, 1.0, 1.0))
+    em_scale = 0.0 if options.white_furnace_mode else 1.0
+    env_mis = envmap_sampled(options, scene) and options.envmap_bsdf_mis
+    alive = torch.zeros((max(options.max_bounces_static, 1),),
+                        dtype=torch.int64, device=dev)
 
     radiance = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     throughput = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
@@ -251,7 +307,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     radiance = radiance + torch.where((~hit0 & pixel_active)[..., None], env0, 0.0)
     # emission at the primary hit, weight 1
     mats0 = mats_all.at_indices(gbuffer.material_id.clamp_min(0)).make_safe()
-    em0 = mats0.effective_emission()
+    em0 = mats0.effective_emission() * em_scale
     radiance = radiance + torch.where((hit0 & pixel_active)[..., None], em0, 0.0)
     aov_albedo = torch.where(hit0[..., None], mats0.base_color, env0.clamp(0.0, 1.0))
     aov_normal = torch.where(hit0[..., None], gbuffer.shading_normal, 0.0)
@@ -275,6 +331,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         # and leaves the RNG stream untouched, as in the JAX package
         if not bool(active.any()):
             break
+        if collect_bounce_stats:
+            alive[bounce] = active.sum()
         mats = mats_all.at_indices(mat_id).make_safe()
         if scene.textures is not None:
             mats = apply_textures(scene.textures, mats, uv)
@@ -305,13 +363,21 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         if not settings.do_alpha_testing:
             alpha_skip = torch.zeros_like(active)
 
-        # --- nested dielectrics: true vs false interfaces, relative IOR ---
-        # (Schmidt 2002 priorities, reference: NestedDielectrics.h)
+        # --- nested dielectrics: true vs false interfaces, relative IOR
+        # (reference: NestedDielectrics.h). WITH_PRIORITIES: Schmidt 2002
+        # priorities; AUTOMATIC (RT Gems 2019, InteriorStackImpl<
+        # ISS_AUTOMATIC>): every dielectric ranks 0 and parity decides, so
+        # entering a material already on the stack is a false interface ---
         is_trans = mats.specular_transmission > 0.0
         top_pri = nd.top_priority(stack_pri)
         top_mat = nd.top_material(stack_mat, stack_pri)
-        m_pri = mats.dielectric_priority.to(torch.int32)
-        false_enter = is_trans & entering & (m_pri < top_pri)
+        if options.interior_stack_strategy == InteriorStackStrategy.AUTOMATIC:
+            m_pri = torch.zeros_like(mats.dielectric_priority, dtype=torch.int32)
+            false_enter = (is_trans & entering
+                           & nd.contains(stack_mat, stack_pri, mat_id))
+        else:
+            m_pri = mats.dielectric_priority.to(torch.int32)
+            false_enter = is_trans & entering & (m_pri < top_pri)
         false_exit = is_trans & ~entering & (top_mat != mat_id) & (top_pri >= 0)
         false_interface = (false_enter | false_exit) & active
         alpha_skip = alpha_skip | false_interface
@@ -328,11 +394,11 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
         eta_rel = torch.where(entering, eta_c / n_outside_enter,
                               n_outside_exit / eta_c).clamp_min(1e-3)
         nee_active = active & ~alpha_skip
-        if direct0 is not None and bounce == 0:
+        if (direct0 is not None and bounce == 0) or options.white_furnace_mode:
             nee_active = torch.zeros_like(nee_active)
         rng_state, direct, n_shadow = _direct_lighting(
-            options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
-            nee_active, eta_rel, shadow_coherent=(bounce == 0))
+            options, scene, bvh, world, settings, mats, p, ns, ng, wo,
+            rng_state, nee_active, eta_rel, shadow_coherent=(bounce == 0))
         if direct0 is not None and bounce == 0:
             direct = direct0
         radiance = radiance + torch.where(active[..., None], throughput * direct, 0.0)
@@ -415,13 +481,19 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
             scene.material_ids[rec.prim.clamp_min(0).long()],
             ("emission", "emission_strength"))
         em_c = (em["emission"] * em["emission_strength"][..., None]
-                * w_em[..., None] * new_throughput)
+                * em_scale * w_em[..., None] * new_throughput)
         em_c = _clamp_contribution(em_c, settings.indirect_contribution_clamp)
         radiance = radiance + torch.where(
             (valid_sample & hit & is_em)[..., None], em_c, 0.0)
 
-        # miss → ambient
-        env_c = eval_envmap(world, scene.envmap, wi) * new_throughput
+        # miss → ambient, or the envmap MIS-weighted against its own
+        # sampling
+        env_c = eval_envmap(world, scene.envmap, wi)
+        if env_mis and world.ambient_light_type == int(AmbientLightType.ENVMAP):
+            w_env = balance_heuristic(
+                bsdf_pdf, envmap_pdf_of_direction(world, scene.envmap, wi))
+            env_c = env_c * w_env[..., None]
+        env_c = env_c * new_throughput
         env_c = _clamp_contribution(env_c, settings.envmap_contribution_clamp)
         radiance = radiance + torch.where((valid_sample & ~hit)[..., None], env_c, 0.0)
 
@@ -445,4 +517,6 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     # NaN / negative scrub: a bad sample contributes black
     bad = (~torch.isfinite(radiance) | (radiance < 0.0)).any(dim=-1)
     radiance = torch.where(bad[..., None], 0.0, radiance)
+    if collect_bounce_stats:
+        return rng_state, radiance, aov_albedo, aov_normal, rays, alive
     return rng_state, radiance, aov_albedo, aov_normal, rays

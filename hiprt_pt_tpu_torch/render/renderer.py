@@ -1,12 +1,17 @@
 """Renderer — host-side orchestration around the render step, mirroring
 ``hiprt_pt_tpu.render.renderer`` (reference: GPURenderer.h:35-508).
 
-``render_step`` advances the state by one sample: camera pass, the ReSTIR
-DI pipeline for the camera vertex (under RESTIR_DI, with reservoirs in the
-state), path tracing, accumulation and the adaptive-sampling counters.
-``Renderer`` owns the scene, BVH, camera and settings and steps frames of
-``samples_per_frame`` samples. Work is queued on the current CUDA stream
-(or runs on the CPU); ``step`` does not synchronize.
+``render_step`` advances the state by ``n_samples`` samples, each a camera
+pass, the ReSTIR DI pipeline for the camera vertex (under RESTIR_DI, with
+reservoirs in the state), path tracing, accumulation and the
+adaptive-sampling counters. ``Renderer`` owns the scene, BVH, camera and
+settings, like the reference's GPURenderer and the headless parts of its
+RenderWindow: it steps frames of ``samples_per_frame`` samples, renders to
+a sample count under the stop conditions, polls the last frame, times the
+passes, reports the kernels it routes to, and reads the images out. Work is
+queued on the current CUDA stream (or runs on the CPU); ``step`` does not
+synchronize unless asked to. The sample count is the state's host integer,
+so the stop conditions read no device value but the converged-pixel count.
 """
 
 from __future__ import annotations
@@ -19,13 +24,15 @@ import torch
 
 from ..accel.build import BVHData, build_bvh
 from ..core import rng as rng_mod
+from ..core.device import elapsed_ms
 from ..core.settings import (LightSamplingStrategy, RenderOptions,
                              RenderSettings, WorldSettings)
 from ..core.state import RenderState, init_render_state
 from ..ops.pixel_order import unscramble
 from ..ops.texture import apply_textures
-from ..ops.tonemap import luminance, resolve_accumulation
+from ..ops.tonemap import luminance, resolve_accumulation, tonemap_gamma
 from ..restir import di
+from ..utils.perf import PerformanceMetrics
 from .integrator import camera_rays_pass, check_supported, render_sample
 
 
@@ -93,10 +100,24 @@ def restir_reuse(options: RenderOptions, width: int, height: int, scene, bvh,
 def render_step(options: RenderOptions, width: int, height: int, scene,
                 bvh: BVHData, state: RenderState, camera,
                 settings: RenderSettings, world: WorldSettings,
-                stage=run_stage) -> RenderState:
-    """Advance the render state by one sample; returns the new state.
-    ``stage``: how each pass of the ReSTIR pipeline runs (restir_reuse)."""
-    check_supported(options, scene)
+                stage=run_stage, n_samples: int = 1) -> RenderState:
+    """Advance the render state by ``n_samples`` samples; returns the new
+    state (the input is left as it was). Each sample is keyed by the
+    state's ``sample_count``, which advances sample by sample, so one call
+    of n samples is the same as n calls of one. ``stage``: how each pass of
+    the ReSTIR pipeline runs (restir_reuse)."""
+    check_supported(scene)
+    for _ in range(n_samples):
+        state = _sample_step(options, width, height, scene, bvh, state,
+                             camera, settings, world, stage)
+    return state
+
+
+def _sample_step(options: RenderOptions, width: int, height: int, scene,
+                 bvh: BVHData, state: RenderState, camera,
+                 settings: RenderSettings, world: WorldSettings,
+                 stage) -> RenderState:
+    """One sample of ``render_step``."""
     sample_number = 0 if settings.freeze_random else state.sample_count
     n = width * height
     dev = state.accum.device
@@ -166,8 +187,16 @@ def render_step(options: RenderOptions, width: int, height: int, scene,
 
 
 class Renderer:
-    """Host-side renderer: owns scene, BVH, camera and settings; device is
-    the scene's."""
+    """Host-side renderer: owns scene, BVH, camera and settings; the
+    device is the scene's. A frame of ``samples_per_frame`` samples is
+    always one ``render_step`` call, which loops the samples (the port has
+    no compiled step to fuse), so ``fuse_frame``, which selects that call
+    in the JAX package, is kept for its callers and has no effect. Stop
+    conditions of ``render`` and
+    ``is_rendering_done``: ``max_sample_count``, ``max_render_time``
+    (seconds since the first step after a reset) and, under a positive
+    ``settings.stop_noise_threshold``, the share
+    ``settings.stop_pixel_percentage_converged`` of converged pixels."""
 
     def __init__(self, scene, camera, width: int, height: int,
                  options: RenderOptions = RenderOptions(),
@@ -190,25 +219,202 @@ class Renderer:
             self.bvh_build_time = time.perf_counter() - t0
         self.bvh = bvh
         self.seed = seed
-        self.state = init_render_state(
-            width, height, seed, self.device,
-            with_restir=options.direct_light_sampling
+        self.metrics = PerformanceMetrics()
+        self.fuse_frame = False  # no effect: see the class docstring
+        self.max_sample_count: Optional[int] = None
+        self.max_render_time: Optional[float] = None
+        self._render_start_time: Optional[float] = None
+        # the CUDA event recorded after the last queued frame
+        self._frame_event = None
+        self.state = self._fresh_state()
+
+    def _fresh_state(self) -> RenderState:
+        return init_render_state(
+            self.width, self.height, self.seed, self.device,
+            with_restir=self.options.direct_light_sampling
             == LightSamplingStrategy.RESTIR_DI)
 
-    def step(self) -> RenderState:
-        """Queue one frame of ``samples_per_frame`` samples."""
-        for _ in range(max(int(self.settings.samples_per_frame), 1)):
-            self.state = render_step(
-                self.options, self.width, self.height, self.scene, self.bvh,
-                self.state, self.camera, self.settings, self.world)
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _step_args(self):
+        return (self.options, self.width, self.height, self.scene, self.bvh)
+
+    def recompile(self, options: RenderOptions):
+        """Swap the static options (reference: GPURenderer::
+        recompile_kernels, GPURenderer.cpp:726-749) and restart the render,
+        whose samples came from the old options: the sample count starts
+        from 0 again (the JAX package's recompile keeps its host mirror of
+        the count, so its stop conditions count the old samples)."""
+        self.options = options
+        self.reset()
+
+    def step(self, block: bool = False) -> RenderState:
+        """Queue one frame of ``samples_per_frame`` samples. With ``block``,
+        wait for it and add its ``frame_ms`` and ``samples_per_s`` (host
+        clock) to ``metrics``."""
+        if self._render_start_time is None:
+            self._render_start_time = time.perf_counter()
+        t0 = time.perf_counter()
+        spf = max(int(self.settings.samples_per_frame), 1)
+        self.state = render_step(*self._step_args(), self.state, self.camera,
+                                 self.settings, self.world, n_samples=spf)
+        if self.device.type == "cuda":
+            self._frame_event = torch.cuda.Event()
+            self._frame_event.record(torch.cuda.current_stream(self.device))
+        if block:
+            self._synchronize()
+            dt = time.perf_counter() - t0
+            self.metrics.add("frame_ms", dt * 1000.0)
+            self.metrics.add("samples_per_s", spf / dt if dt > 0 else 0.0)
         return self.state
+
+    def frame_render_done(self) -> bool:
+        """Has the last queued frame finished? A non-blocking query of the
+        event recorded after it (reference: oroStreamQuery,
+        GPURenderer.cpp:497-510); before any frame, of an event recorded
+        now. Always True on the CPU, where a step returns when done."""
+        if self.device.type != "cuda":
+            return True
+        if self._frame_event is None:
+            self._frame_event = torch.cuda.Event()
+            self._frame_event.record(torch.cuda.current_stream(self.device))
+        return self._frame_event.query()
+
+    def render(self, total_samples: int, log_every: int = 0) -> RenderState:
+        """Step frames until ``total_samples`` samples or a stop condition
+        (reference: the headless render loop)."""
+        while self.state.sample_count < total_samples:
+            self.step(block=True)
+            sc = self.state.sample_count
+            if log_every and sc % log_every == 0:
+                print(f"[render] {sc}/{total_samples} samples")
+            if self.is_rendering_done():
+                break
+        self._synchronize()
+        return self.state
+
+    def is_rendering_done(self) -> bool:
+        """Stop conditions (reference: RenderWindow.cpp:582-616): the
+        sample count, the render time, the share of converged pixels."""
+        if (self.max_sample_count is not None
+                and self.state.sample_count >= self.max_sample_count):
+            return True
+        if (self.max_render_time is not None
+                and self._render_start_time is not None
+                and time.perf_counter() - self._render_start_time
+                >= self.max_render_time):
+            return True
+        if self.settings.stop_noise_threshold > 0.0:
+            frac = int(self.state.nb_pixels_converged) / (self.width * self.height)
+            if frac >= self.settings.stop_pixel_percentage_converged:
+                return True
+        return False
+
+    def profile(self, frames: int = 2) -> dict:
+        """Per-pass times in ms (reference: per-kernel event timing,
+        GPUKernel.cpp:180-189): the camera pass alone, then a one-sample
+        step at nb_bounces = 0 and at the configured count, each after a
+        warm-up and averaged over ``frames``; CUDA events on the card, the
+        host's clock on the CPU. The renderer's state is left as it was.
+        The *_ms results are also added to ``metrics``."""
+        st0 = self.state
+        n = self.width * self.height
+
+        def camera_pass():
+            rngs = rng_mod.seed(torch.arange(n, device=self.device),
+                                st0.sample_count, st0.seed)
+            camera_rays_pass(self.scene, self.bvh, self.camera, self.settings,
+                             st0, self.width, self.height, st0.sample_count,
+                             rngs, self.options)
+
+        def step_ms(nb: int) -> float:
+            settings = self.settings.replace(nb_bounces=nb, samples_per_frame=1)
+            st = [st0]
+
+            def one():
+                st[0] = render_step(*self._step_args(), st[0], self.camera,
+                                    settings, self.world)
+            return elapsed_ms(one, self.device, frames)
+
+        cam_ms = elapsed_ms(camera_pass, self.device, frames)
+        nb = int(self.settings.nb_bounces)
+        base_ms = step_ms(0)
+        full_ms = step_ms(nb)
+        result = {
+            "camera_pass_ms": cam_ms,
+            "camera_plus_overhead_ms": base_ms,
+            "direct_and_accum_ms": max(base_ms - cam_ms, 0.0),
+            "per_bounce_ms": (full_ms - base_ms) / max(nb, 1),
+            "bounce_loop_ms": max(full_ms - base_ms, 0.0),
+            "full_frame_ms": full_ms,
+            "nb_bounces": nb,
+        }
+        for k, v in result.items():
+            if k.endswith("_ms"):
+                self.metrics.add(k, float(v))
+        return result
+
+    def kernel_stats(self) -> dict:
+        """The kernels the live options route to, the analog of the
+        reference's "Shader kernels" panel (GPUKernelCompiler.cpp:111-117):
+        for each, in closest-hit and any-hit mode, its registers per
+        thread, local bytes per thread, shared bytes per block and resident
+        blocks per SM (from its library's *_info function, which must
+        succeed); the kernels' launch counts and the device's peak memory.
+        On the CPU, or with ``use_pallas_traversal`` off, the plain walks
+        run and no kernel is reported."""
+        out = {"options": str(self.options)}
+        if self.device.type != "cuda" or not self.options.use_pallas_traversal:
+            return {"kernel": "plain walks", **out}
+        from ..ops import cuda_build, cuda_traverse
+        from ..ops.routing import route
+
+        libs = cuda_build.load_libraries()
+        keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+        kernels = {}
+        for k in sorted({route(self.bvh, True), route(self.bvh, False)}):
+            fn = getattr(libs[cuda_traverse.source_of(k)], f"hpt_{k}_info")
+            kernels[k] = {mode: dict(zip(keys, cuda_build.kernel_info(fn, flag)))
+                          for mode, flag in (("closest", 0), ("any_hit", 1))}
+        return {"kernel": "render_step", **out, "kernels": kernels,
+                "launch_counts": dict(cuda_traverse.launch_counts),
+                "peak_device_memory_bytes":
+                    torch.cuda.max_memory_allocated(self.device)}
 
     @property
     def rays_traced(self) -> int:
         """Camera + bounce + shadow rays traced so far (syncs the device)."""
         return int(self.state.rays_traced)
 
+    def _image(self, x: torch.Tensor) -> np.ndarray:
+        """(H, W, C) of a per-pixel buffer, row 0 = top."""
+        return unscramble(x.cpu().numpy(), self.width, self.height)[::-1]
+
     def hdr_image(self) -> np.ndarray:
         """(H, W, 3) mean radiance, row 0 = top."""
-        img = resolve_accumulation(self.state.accum, self.state.sample_count)
-        return unscramble(img.cpu().numpy(), self.width, self.height)[::-1]
+        return self._image(resolve_accumulation(self.state.accum,
+                                                self.state.sample_count))
+
+    def ldr_image(self, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
+        """(H, W, 3) display image in [0, 1], row 0 = top."""
+        hdr = resolve_accumulation(self.state.accum, self.state.sample_count)
+        return self._image(tonemap_gamma(hdr, exposure, gamma))
+
+    def aov_images(self):
+        """(albedo, normal), each (H, W, 3), the denoiser's AOVs averaged
+        over each pixel's samples, row 0 = top."""
+        n = self.state.pixel_sample_count.to(torch.float32).clamp_min(1.0)[:, None]
+        return (self._image(self.state.denoiser_albedo / n),
+                self._image(self.state.denoiser_normal / n))
+
+    def reset(self):
+        """Restart accumulation from the fixed seed (reference:
+        GPURenderer::reset, GPURenderer.cpp:953-973)."""
+        self.state = self._fresh_state()
+        self._render_start_time = None
+
+    def set_camera(self, camera):
+        self.camera = camera
+        self.reset()

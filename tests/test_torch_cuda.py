@@ -710,3 +710,122 @@ def test_stream8_repeatable_and_the_earlier_kernel_agrees(gpu_scene, any_hit):
     assert torch.equal(first.prim >= 0, prim >= 0)
     if not any_hit:
         assert torch.equal(first.t, t)
+
+
+@pytest.fixture(scope="module")
+def gpu_envmap():
+    """The envmap path (paths.py) on the card: the Cornell box with the
+    "sky" test envmap, and its options."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch import paths
+
+    scene, cam, bvh, _secs = paths.load("envmap", torch.device("cuda:0"))
+    return scene, cam, bvh, paths.slice_options("envmap")
+
+
+@pytest.mark.parametrize("strategy", ["ALIAS_TABLE", "CDF_BINARY"])
+def test_sample_envmap_on_the_card_matches_the_cpu(gpu_envmap, strategy):
+    """The same texel on every ray (the radiance is fetched from it), the
+    same direction and pdf, from the same PCG state."""
+    from hiprt_pt_tpu_torch.core import rng
+    from hiprt_pt_tpu_torch.core import settings as ts
+    from hiprt_pt_tpu_torch.lights.envmap_sampling import sample_envmap
+
+    scene, _cam, _bvh, (opts, _settings, world) = gpu_envmap
+    opts = opts.replace(envmap_sampling=getattr(ts.EnvmapSamplingStrategy, strategy))
+    env = scene.envmap
+    out = [sample_envmap(opts, world, e, rng.seed(torch.arange(65536, device=dev),
+                                                  5, 42))
+           for e, dev in ((env, env.texels.device), (env.to("cpu"), "cpu"))]
+    (s_g, wi_g, rad_g, pdf_g), (s_c, wi_c, rad_c, pdf_c) = out
+    assert torch.equal(s_g.cpu(), s_c) and torch.equal(rad_g.cpu(), rad_c)
+    np.testing.assert_allclose(wi_g.cpu().numpy(), wi_c.numpy(), rtol=0.0, atol=1e-6)
+    np.testing.assert_allclose(pdf_g.cpu().numpy(), pdf_c.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_meganode_kernel_on_envmap_shadow_rays(gpu_envmap, any_hit):
+    """trace_meganode on the envmap path's shadow rays (t_max = inf) against
+    its plain walk: the prims agree, t bit-identical where they do."""
+    import chip_smoke as cs
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    scene, cam, bvh, _ = gpu_envmap
+    rays = cs.kind_rays("envmap", scene, bvh, cam, 256, 128,
+                        plain.traverse_meganode, 1, None)
+    o, d, _t, active = rays["envmap"]
+    rk = ct.trace_meganode(bvh, o, d, 1e-4, float("inf"), active, any_hit=any_hit)
+    rp = plain.traverse_meganode(bvh, o, d, 1e-4, float("inf"), active,
+                                 any_hit=any_hit)
+    pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
+    assert (pk >= 0).mean() > 0.3 and int(active.sum()) > 1000
+    if any_hit:
+        assert np.mean((pk >= 0) == (pp >= 0)) >= 0.9999
+    else:
+        assert np.mean(pk == pp) >= 0.9999
+        m = (pk == pp) & (pk >= 0)
+        assert np.array_equal(rk.t.cpu().numpy()[m], rp.t.cpu().numpy()[m])
+
+
+def test_renderer_frame_loop_on_the_card(gpu_envmap, monkeypatch):
+    """The Renderer's frame loop on the envmap path at 128x64: blocking
+    steps and their metrics, the frame poll on a finished and an
+    unfinished frame, the stop at
+    max_sample_count, profile() (the live state left as it was),
+    kernel_stats() from the kernel library, the images; and the image
+    against the CPU's."""
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.render import renderer as renderer_mod
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+
+    scene, cam, bvh, (opts, settings, world) = gpu_envmap
+    r = Renderer(scene, cam, 128, 64, options=opts, settings=settings,
+                 world=world, bvh=bvh, seed=42)
+    assert r.frame_render_done() in (True, False)
+    ct.reset_launch_counts()
+    r.step(block=True)
+    assert ct.launch_counts["trace_meganode"] == 19
+    assert r.frame_render_done()
+    # a frame whose last queued work is about a second of device sleep is
+    # unfinished when step() returns
+    real_step = renderer_mod.render_step
+
+    def slow_step(*args, **kw):
+        state = real_step(*args, **kw)
+        torch.cuda._sleep(2 * 10**9)
+        return state
+
+    monkeypatch.setattr(renderer_mod, "render_step", slow_step)
+    r.step()
+    assert not r.frame_render_done()
+    monkeypatch.setattr(renderer_mod, "render_step", real_step)
+    torch.cuda.synchronize()
+    assert r.frame_render_done()
+    assert len(r.metrics.values("frame_ms")) == 1
+    r.reset()
+    r.max_sample_count = 2
+    r.render(total_samples=5)
+    assert r.state.sample_count == 2
+    accum = r.state.accum.clone()
+    prof = r.profile(frames=1)
+    assert prof["nb_bounces"] == 6 and prof["full_frame_ms"] > prof["camera_pass_ms"] > 0
+    assert r.state.sample_count == 2 and torch.equal(r.state.accum, accum)
+    stats = r.kernel_stats()
+    assert stats["kernel"] == "render_step" and set(stats["kernels"]) == {"trace_meganode"}
+    for mode in ("closest", "any_hit"):
+        info = stats["kernels"]["trace_meganode"][mode]
+        assert info["registers"] > 0 and info["blocks_per_sm"] > 0
+    assert stats["launch_counts"]["trace_meganode"] > 19
+    assert stats["peak_device_memory_bytes"] > 0
+    alb, nrm = r.aov_images()
+    for img in (r.ldr_image(), alb, nrm):
+        assert img.shape == (64, 128, 3) and np.isfinite(img).all()
+    cpu = torch.device("cpu")
+    ref = Renderer(scene.to(cpu), cam.to(cpu), 128, 64, options=opts,
+                   settings=settings, world=world, bvh=bvh.to(cpu), seed=42)
+    ref.render(total_samples=2)
+    got, want = r.hdr_image(), ref.hdr_image()
+    close = np.all(np.abs(got - want) <= 1e-3 + 1e-3 * np.abs(want), axis=-1)
+    assert close.mean() >= 0.98

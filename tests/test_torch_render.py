@@ -254,23 +254,14 @@ def test_renderer_image_matches_jax(both):
 
 
 def test_unsupported_features_raise(both):
+    """Only alpha textures are still refused (they need the alpha-aware
+    shadow march), under MIS and ReSTIR DI alike, before any pass."""
     from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
     from hiprt_pt_tpu_torch.core.state import init_render_state
     from hiprt_pt_tpu_torch.render.renderer import render_step
 
     opts, settings, world = _port_config()
-    for bad in (opts.replace(white_furnace_mode=True),
-                opts.replace(interior_stack_strategy=ts.InteriorStackStrategy.AUTOMATIC)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_step(bad, 16, 8, both["tscene"], both["tbvh"],
-                        init_render_state(16, 8, device="cpu"), both["tcam"], settings, world)
-    # ReSTIR DI is ported; envmaps are not, and render_step refuses them
-    # before any pass
     restir = opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RESTIR_DI)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_step(restir, 16, 8, dataclasses.replace(both["tscene"], envmap=object()),
-                    both["tbvh"], init_render_state(16, 8, device="cpu", with_restir=True),
-                    both["tcam"], settings, world)
     # textures are ported; alpha textures need the alpha-aware shadow march
     scene, _cam = load_stress_scene(tri_scale=0.01, with_textures=True,
                                   device="cpu")
@@ -283,6 +274,44 @@ def test_unsupported_features_raise(both):
                         init_render_state(16, 8, device="cpu",
                                           with_restir=o is restir),
                         both["tcam"], settings, world)
+
+
+@pytest.mark.parametrize("feature", ["white-furnace", "automatic-stack",
+                                     "envmap-restir"])
+def test_formerly_refused_features_render(both, feature):
+    """White-furnace mode, the AUTOMATIC interior stack and an envmap (here
+    under ReSTIR DI) were refused before the port carried them; each now
+    renders a sample of the stress slice (tests/test_torch_renderer.py and
+    test_torch_envmap.py hold them against the JAX package)."""
+    from hiprt_pt_tpu_torch.assets.envmap import build_envmap, make_test_envmap
+    from hiprt_pt_tpu_torch.core.state import init_render_state
+    from hiprt_pt_tpu_torch.render.renderer import render_step
+
+    opts, settings, world = _port_config()
+    scene, restir = both["tscene"], False
+    if feature == "white-furnace":
+        opts = opts.replace(white_furnace_mode=True)
+    elif feature == "automatic-stack":
+        opts = opts.replace(
+            interior_stack_strategy=ts.InteriorStackStrategy.AUTOMATIC)
+    else:
+        opts = opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RESTIR_DI)
+        scene = dataclasses.replace(scene, envmap=build_envmap(
+            make_test_envmap(16, 32, "sky"), device="cpu"))
+        world = world.replace(ambient_light_type=int(ts.AmbientLightType.ENVMAP))
+        restir = True
+    state = render_step(opts, 16, 8, scene, both["tbvh"],
+                        init_render_state(16, 8, device="cpu", with_restir=restir),
+                        both["tcam"], settings, world)
+    img = state.accum.numpy()
+    assert state.sample_count == 1 and int(state.rays_traced) > 128
+    assert np.isfinite(img).all()
+    if feature == "white-furnace":
+        # a uniform white world and no emission: the closed interior, whose
+        # 4-bounce paths never reach the world, is black
+        assert img.max() == 0.0
+    else:
+        assert img.sum() > 0.0
 
 
 def test_port_imports_no_jax():
@@ -301,12 +330,19 @@ def test_port_imports_no_jax():
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'hiprt_pt_tpu')\n"
         "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    count, names = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 25
+    # the modules of the frame loop and the envmaps among them
+    assert {"hiprt_pt_tpu_torch.assets.envmap",
+            "hiprt_pt_tpu_torch.lights.envmap_sampling",
+            "hiprt_pt_tpu_torch.render.renderer",
+            "hiprt_pt_tpu_torch.utils.perf"} <= set(names.split())
 
 
 def test_render_state_replace_is_not_in_place(both):
