@@ -123,6 +123,7 @@ import torch
 from hiprt_pt_tpu_torch.core.device import cuda_ms
 # each traversal kernel's tables and its plain PyTorch version (ops/traverse.py)
 from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES, PLAIN_WALKS as PLAIN
+from hiprt_pt_tpu_torch.ops.traverse import alpha_shadows
 
 WIDTH, HEIGHT = 1920, 1080
 PARITY_RAYS = 65536
@@ -165,21 +166,39 @@ RESTIR_CASES = (("trace_coherent", "masked"), ("trace_incoherent", "initial"),
                 ("trace_incoherent", "restir"))
 ENVMAP_CASES = tuple(("trace_meganode", kind)
                      for kind in ("camera", "bounce", "shadow", "envmap"))
+# the gltf path: only the alpha march's two ray kinds, which no other path
+# sends (its camera, bounce and shadow rays are the headline's kinds)
+GLTF_CASES = tuple((k, kind) for k in ("trace_coherent", "trace_incoherent")
+                   for kind in ("prune", "segment"))
 PATH_CASES = (("stress", STRESS_CASES), ("cornell", CORNELL_CASES),
               ("stress14", STRESS14_CASES), ("headline", HEADLINE_CASES),
-              ("restir", RESTIR_CASES), ("envmap", ENVMAP_CASES))
+              ("restir", RESTIR_CASES), ("envmap", ENVMAP_CASES),
+              ("gltf", GLTF_CASES))
 # the ray kinds the path traces any-hit: shadow rays, the ReSTIR path's
 # first bounce's shadow rays (every one inactive), its visibility rays (of
 # visibility reuse, "initial"; of the last spatial pass and final shading,
-# "restir") and the envmap's shadow rays ("envmap")
-ANY_HIT_KINDS = ("shadow", "masked", "initial", "restir", "envmap")
+# "restir"), the envmap's shadow rays ("envmap") and the alpha march's
+# alpha-blind prune of the shadow rays ("prune"); the march's segments
+# ("segment": closest hits from origins moved past a surface the ray
+# passed through, t_max what is left of the shadow ray) are closest-hit
+ANY_HIT_KINDS = ("shadow", "masked", "initial", "restir", "envmap", "prune")
 # any-hit kinds also held in closest-hit mode, t bit-identical, and against
 # brute force: the rays to t_max = inf
 UNBOUNDED_ANY_HIT_KINDS = ("envmap",)
+# the kinds whose t must be bit-identical to the plain walk's where the
+# prims agree
+EXACT_T_KINDS = ("envmap", "segment")
+# the march segment that the "segment" kind holds: the second, the first
+# from origins moved past a surface
+MARCH_SEGMENT = 2
 # the paths whose parity phase also renders with the plain walks on the card
 PLAIN_ON_GPU = ("headline", "restir", "envmap")
 # the paths whose Renderer frame loop phase 6b drives
 RENDERER_PATHS = ("envmap",)
+# the gltf path's parity phase: the light strategies it renders besides
+# the path's own RIS, so that every call site of the alpha march runs on
+# the card, with their samples
+GLTF_PARITY = (("MIS", 1), ("RESTIR_DI", 2))
 # the device sleep (torch.cuda._sleep cycles, about a second on an H100)
 # that phase 6b queues at the end of a frame, so that its poll sees the
 # frame unfinished
@@ -193,13 +212,13 @@ SERVES = {"trace_coherent": ("stress", "camera"),
           "trace_lane8log": ("stress14", "bounce")}
 # a kernel's bound (H100 SXM peak rates): f32
 # operations of the plain walk on the rays over the f32 rate, and bytes
-# (each ray in once: o, d, t_min, t_max, active = 33 B; each hit record out
-# once: t, prim, u, v = 16 B; each table once) over the memory rate; a
-# wavefront with no active ray reads only the active flags (1 B a ray) and
-# writes the miss records
+# over the memory rate, as the kernels move them: every ray's active flag
+# and t_max in (1 + 4 B) and its hit record out (t, prim, u, v = 16 B); an
+# active ray's o, d and t_min in (28 B); each table once if any ray is
+# active
 F32_OPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
-RAY_BYTES, HIT_BYTES, ACTIVE_BYTES = 33, 16, 1
+ACTIVE_BYTES, TMAX_BYTES, HIT_BYTES, RAY_BYTES = 1, 4, 16, 28
 # a slab test: 6 sub + 6 mul, 6 min/max of the pairs, 3 + 3 min/max of the
 # entry and exit, 1 compare; a triangle test (Moller-Trumbore): two cross
 # products (18), four 3-term dots (20), the edge vector (3), u and v and t
@@ -443,8 +462,8 @@ def phase_scene(tag, dev):
         f"emissive triangles, "
         f"{0 if tex is None else tex.num_layers} textures"
         f"{'' if tex is None else f' (atlas {tuple(tex.texels.shape)}, kinds {tex.kinds_used})'}, "
-        f"{scene.materials.ior.shape[0]} materials; set-up: scene "
-        f"{secs['scene']:.3f} s, BVH build {secs['bvh']:.3f} s; tables on the "
+        f"{scene.materials.ior.shape[0]} materials; set-up: "
+        f"{', '.join(f'{k} {v:.3f} s' for k, v in secs.items())}; tables on the "
         f"card {tables}, {bvh.nbytes} bytes; depth4 {bvh.depth4}, depth8 "
         f"{bvh.depth8}, depth2 {bvh.depth2}, lane8 {bvh.lane8}; routes: "
         f"coherent {routes[0]}, incoherent {routes[1]}")
@@ -452,7 +471,9 @@ def phase_scene(tag, dev):
               "stress14": (2_042_048, 240, 18, None),
               "headline": (259_120, 240, 18, None),
               "restir": (259_120, 240, 18, None),
-              "envmap": (35_852, 2, 0, (64, 128, 3))}[tag]
+              "envmap": (35_852, 2, 0, (64, 128, 3)),
+              # the stress interior's 18 textures and the four cutout copies
+              "gltf": (259_120, 240, 22, None)}[tag]
     env = scene.envmap
     got = (scene.num_triangles, scene.num_emissives,
            0 if tex is None else tex.num_layers,
@@ -467,7 +488,107 @@ def phase_scene(tag, dev):
     if routes != paths.ROUTES[tag]:
         raise AssertionError(f"the {tag} scene routes to {routes}, expected "
                              f"{paths.ROUTES[tag]}")
+    if (tex is not None and tex.has_alpha) != (tag == "gltf"):
+        raise AssertionError(f"the {tag} scene has alpha textures: "
+                             f"{tex is not None and tex.has_alpha}")
+    if tag == "gltf":
+        gltf_serial_load(dev, secs)
     return scene, cam, bvh
+
+
+def gltf_serial_load(dev, parallel):
+    """The gltf path's scene file loaded once more with parallel=False:
+    its stage times beside the parallel load's (``parallel``)."""
+    import tempfile
+
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.assets.loader import load_scene_file
+
+    serial = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        glb = paths.write_gltf_scene(tmp)
+        serial["write"] = time.perf_counter() - t0
+        scene, _cam, _bvh = load_scene_file(glb, aspect=paths.ASPECT,
+                                            parallel=False, with_bvh=True,
+                                            device=dev, timings=serial)
+    torch.cuda.synchronize()
+    log(f"[gltf scene] load_scene_file, serial (parallel=False): "
+        f"{', '.join(f'{k} {v:.3f} s' for k, v in serial.items())}; parallel: "
+        f"{', '.join(f'{k} {v:.3f} s' for k, v in parallel.items())}")
+    if scene.num_triangles != 259_120:
+        raise AssertionError(f"the serial load gave {scene.num_triangles} triangles")
+
+
+def phase_files(dev):
+    """Scene files on the card with imageio unimportable: load_envmap of an
+    .hdr that write_hdr wrote, within one RGBE step of the array written,
+    and a .gltf with external .bin and .png files (the Cornell box with a
+    textured wall and a cutout sphere) through load_scene_file, equal to
+    its load on the CPU."""
+    import tempfile
+
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.assets.cornell import cornell_spheres_arrays
+    from hiprt_pt_tpu_torch.assets.envmap import load_envmap, make_test_envmap
+    from hiprt_pt_tpu_torch.assets.gltf import ParsedScene
+    from hiprt_pt_tpu_torch.assets.gltf_testscene import write_gltf
+    from hiprt_pt_tpu_torch.assets.image_io import write_hdr
+    from hiprt_pt_tpu_torch.assets.loader import load_scene_file
+    from hiprt_pt_tpu_torch.core.camera import camera_from_lookat
+
+    saved = {k: sys.modules.pop(k, None) for k in ("imageio", "imageio.v3")}
+    sys.modules["imageio"] = sys.modules["imageio.v3"] = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            img = make_test_envmap(64, 128, "sky")
+            write_hdr(os.path.join(tmp, "sky.hdr"), img)
+            env = load_envmap(os.path.join(tmp, "sky.hdr"), device=dev)
+            _m, e = np.frexp(img.max(-1))
+            step = np.ldexp(1.0, e - 8)[..., None]
+            err = np.abs(env.texels.cpu().numpy().astype(np.float64) - img)
+            log(f"[files] load_envmap of a written .hdr on {env.texels.device}: "
+                f"{tuple(env.texels.shape)} texels, max |err| / RGBE step "
+                f"{float((err / step).max()):.4f}, max radiance "
+                f"{float(env.texels.max()):.3f}")
+            if not (err <= step).all() or env.texels.device.type != "cuda":
+                raise AssertionError("load_envmap is not within one RGBE step")
+            v, f, mids, rows, cam_kw = cornell_spheres_arrays(paths.ASPECT)
+            rows = [dict(r) for r in rows]
+            rows[0]["base_color_texture_index"] = 0
+            yy, xx = np.mgrid[0:32, 0:32]
+            checker = np.where(((yy // 8 + xx // 8) % 2)[..., None] == 0,
+                               [220, 200, 180, 255], [60, 70, 90, 255])
+            parsed = ParsedScene(
+                vertices=v, triangles=f, normals=None,
+                uvs=np.stack([v[:, 0] + v[:, 2], v[:, 1] - v[:, 2]], -1),
+                material_ids=mids, material_rows=rows,
+                camera=camera_from_lookat(**cam_kw, device="cpu"),
+                images=[checker.astype(np.uint8)])
+            path = os.path.join(tmp, "cornell.gltf")
+            write_gltf(path, parsed, alpha_materials=(6,), external=True)
+            t0 = time.perf_counter()
+            scene, _cam, bvh = load_scene_file(path, aspect=paths.ASPECT,
+                                               parallel=True, with_bvh=True,
+                                               device=dev)
+            secs = time.perf_counter() - t0
+            ref, _c = load_scene_file(path, aspect=paths.ASPECT, device="cpu")
+            files = sorted(os.listdir(tmp))
+    finally:
+        for k, mod in saved.items():
+            if mod is None:
+                del sys.modules[k]
+            else:
+                sys.modules[k] = mod
+    tex = scene.textures
+    log(f"[files] {files}: {scene.num_triangles} triangles, {tex.num_layers} "
+        f"textures on {tex.texels.device}, has_alpha {tex.has_alpha}, BVH "
+        f"{bvh.nbytes} bytes, {secs:.3f} s")
+    if (scene.num_triangles, tex.num_layers, tex.has_alpha) != (35_852, 2, True) \
+            or not torch.equal(scene.tri_data.cpu(), ref.tri_data) \
+            or not torch.equal(tex.texels.cpu(), ref.textures.texels) \
+            or tex.texels.device.type != "cuda":
+        raise AssertionError("the external-file .gltf loaded otherwise on the card")
 
 
 def camera_rays(cam, width, height):
@@ -574,7 +695,42 @@ def kind_rays(tag, scene, bvh, cam, width, height, walk, seed, tile):
     if scene.envmap is not None:
         o_e, d_e, valid_e = envmap_rays(tag, scene, p, ng, seed + 2)
         rays["envmap"] = (o_e, d_e, None, hit & valid_e)
+    if alpha_shadows(scene):
+        rays.update(march_rays(scene, bvh, o_s, d_s, tmax_s, hit & valid,
+                               walk, seed + 3))
     return rays
+
+
+def march_rays(scene, bvh, o, d, t_max, active, walk, seed):
+    """{"prune": ..., "segment": ...}: the alpha march's two ray kinds on
+    the shadow rays (o, d, t_max, active), as ops/traverse.py:
+    occluded_alpha forms them with the plain walk ``walk`` and the PCG
+    stream of seed ``seed``: the prune's any-hit rays (the shadow rays
+    themselves), and the closest-hit rays of its MARCH_SEGMENT-th segment
+    (origins moved past the surface each passed through, t_max what is
+    left, active: the rays still marching)."""
+    from hiprt_pt_tpu_torch.core import rng
+    from hiprt_pt_tpu_torch.ops.traverse import occluded_alpha
+
+    calls = []
+
+    def record(bvh, o, d, t_min, t_max, active, any_hit):
+        calls.append((o, d, t_max, active, any_hit))
+        return walk(bvh, o, d, t_min, t_max, active, any_hit=any_hit)
+
+    state = rng.seed(torch.arange(o.shape[0], device=o.device), 0, seed)
+    occluded_alpha(bvh, scene, o, d, state, t_min=1e-4, t_max=t_max,
+                   active=active, trace=record)
+    segments = [c[:4] for c in calls if not c[4]]
+    log(f"[kernels] the march on {int(active.sum())} shadow rays: "
+        f"{int(calls[0][3].sum())} pruned to {int(segments[0][3].sum())}, "
+        f"segments of {[int(c[3].sum()) for c in segments]} rays")
+    if len(segments) < MARCH_SEGMENT:
+        raise AssertionError(f"the march ran {len(segments)} segments, fewer "
+                             f"than {MARCH_SEGMENT}: no ray passed a surface")
+    so, sd, st, sa = segments[MARCH_SEGMENT - 1]
+    return {"prune": (o, d, t_max, active),
+            "segment": (so.contiguous(), sd, st.contiguous(), sa)}
 
 
 def compare(name, rk, rp, any_hit, active, exact_t=False):
@@ -615,11 +771,9 @@ def bound(bvh, kernel, n, n_active, stats):
     F32_OPS_PER_S above)."""
     # a walk of no active ray visits nothing and counts nothing
     ops = stats.get("box_tests", 0) * SLAB_OPS + stats.get("tri_tests", 0) * TRI_OPS
+    nbytes = n * (ACTIVE_BYTES + TMAX_BYTES + HIT_BYTES) + n_active * RAY_BYTES
     if n_active:
-        nbytes = n * (RAY_BYTES + HIT_BYTES) + sum(
-            getattr(bvh, t).numel() * 4 for t in KERNEL_TABLES[kernel])
-    else:
-        nbytes = n * (ACTIVE_BYTES + HIT_BYTES)
+        nbytes += sum(getattr(bvh, t).numel() * 4 for t in KERNEL_TABLES[kernel])
     op_ms, byte_ms = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
     return max(op_ms, byte_ms), ("operations" if op_ms > byte_ms else "bytes")
 
@@ -719,7 +873,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}]"
             errs[kname] = max(errs[kname], compare(
                 tag_, rk, plain_recs[key], any_hit, a,
-                exact_t=kind in UNBOUNDED_ANY_HIT_KINDS))
+                exact_t=kind in EXACT_T_KINDS))
         if kind in ANY_HIT_KINDS and kind not in UNBOUNDED_ANY_HIT_KINDS:
             continue
         # brute force on 1,024 active rays with an unbounded t_max
@@ -763,7 +917,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
                     f"finite t_max]")
             errs[kname] = max(errs[kname], compare(
                 tag_, rk, plain_recs[key], any_hit, a,
-                exact_t=kind in UNBOUNDED_ANY_HIT_KINDS))
+                exact_t=kind in EXACT_T_KINDS))
     del plain_recs
     rows, plain_ms = {}, {}
     for kname, kind in cases:
@@ -783,7 +937,7 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             tag_ = f"{kname}[{kind}, {'any' if any_hit else 'closest'}, 1080p]"
             errs[kname] = max(errs[kname], compare(
                 tag_, rk, rp, any_hit, a,
-                exact_t=kind in UNBOUNDED_ANY_HIT_KINDS))
+                exact_t=kind in EXACT_T_KINDS))
             mode = "any" if any_hit else "closest"
             row[f"{mode}_ms"], row[f"{mode}_plain_ms"] = k_ms, p_ms
             packets = ""
@@ -850,7 +1004,9 @@ def launches_per_frame(tag, scene):
     that the options switch on (incoherent route; its BSDF candidates take
     the dense emissive sweep). With an importance-sampled envmap every
     bounce also traces one envmap shadow wavefront (_envmap_nee,
-    incoherent route, t_max = inf)."""
+    incoherent route, t_max = inf). With alpha textures each emissive
+    shadow trace is the alpha march's any-hit prune ("prune"), followed by
+    as many closest-hit segments as the data asks for (not counted here)."""
     from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
     from hiprt_pt_tpu_torch.lights.envmap_sampling import envmap_sampled
     from hiprt_pt_tpu_torch.lights.ris import DENSE_EMISSIVE_MAX
@@ -867,10 +1023,13 @@ def launches_per_frame(tag, scene):
     bounces = min(opts.max_bounces_static, int(settings.nb_bounces))
     n_ls = max(int(settings.number_of_light_samples), 1)
     out = {}
+    # with alpha textures every shadow trace is the march's prune (its
+    # segments depend on the data: phase_slice adds the ones that ran)
+    shadow = "prune" if alpha_shadows(scene) else "shadow"
     # ReSTIR's first bounce: the RIS shadow wavefront with every ray masked
-    first = "masked" if restir else "shadow"
+    first = "masked" if restir else shadow
     for kernel, kind, n in ((coherent, "camera", 1), (coherent, first, n_ls),
-                            (incoherent, "shadow", (bounces - 1) * n_ls),
+                            (incoherent, shadow, (bounces - 1) * n_ls),
                             (incoherent, "bounce", bounces)):
         out[(tag, kernel, kind)] = out.get((tag, kernel, kind), 0) + n
     if envmap_sampled(opts, scene):
@@ -891,6 +1050,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     ``kernels`` must be launched in them, and no other, as many times as
     launches_per_frame says."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
@@ -899,6 +1059,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
                  world=world, bvh=bvh, seed=42)
     torch.cuda.reset_peak_memory_stats()
     ct.reset_launch_counts()
+    traverse.reset_march_counts(tally=True)
     r.step()  # warm-up frame
     torch.cuda.synchronize()
     rays0 = r.rays_traced
@@ -913,6 +1074,8 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ct.launch_counts)
+    march = {k: v if isinstance(v, dict) else int(v)
+             for k, v in traverse.march_counts.items()}
     ms = start.elapsed_time(end)
     rays = r.rays_traced - rays0
     img = r.hdr_image()
@@ -926,16 +1089,39 @@ def phase_slice(tag, scene, cam, bvh, kernels):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches}; per frame by ray kind {per_kind}; image mean "
         f"{float(img.mean()):.6f}, non-black {nonblack:.4f}")
+    segments = march["segments"]
+    if alpha_shadows(scene):
+        log(f"[{tag} slice] the alpha march, per frame: "
+            f"{march['calls'] / SLICE_FRAMES:g} calls, "
+            f"{march['rays'] / SLICE_FRAMES:.1f} shadow rays given, "
+            f"{march['entered'] / SLICE_FRAMES:.1f} entered it (the prune "
+            f"found a blocker), {march['passed'] / SLICE_FRAMES:.1f} passed "
+            f"through at least one surface; segments run "
+            f"{ {k: v / SLICE_FRAMES for k, v in segments.items()} }")
+        if march["passed"] == 0:
+            raise AssertionError(f"{tag}: no shadow ray passed through a "
+                                 f"surface in {SLICE_FRAMES} frames")
+        for k, v in segments.items():
+            per_kind[(tag, k, "segment")] = v / SLICE_FRAMES
+    elif march["calls"]:
+        raise AssertionError(f"{tag}: the alpha march ran on a scene without "
+                             f"alpha textures")
     for k, v in launches.items():
         if (v > 0) != (k in kernels):
             raise AssertionError(
                 f"{k} was launched {v} times by the {tag} path, which should "
                 f"launch exactly {sorted(kernels)}")
-        want = SLICE_FRAMES * sum(n for (_, kk, _), n in per_kind.items() if kk == k)
+        want = segments.get(k, 0) + SLICE_FRAMES * sum(
+            n for (_, kk, kind), n in per_kind.items()
+            if kk == k and kind != "segment")
         if v != want:
             raise AssertionError(f"{k} was launched {v} times in {SLICE_FRAMES} "
                                  f"frames of the {tag} path; its ray kinds "
                                  f"{per_kind} make {want}")
+    if alpha_shadows(scene):
+        sites = host_syncs(r.step)
+        log(f"[{tag} slice] one frame: {sum(sites.values())} host syncs, "
+            f"{json.dumps(dict(sites.most_common()))}")
     if not np.isfinite(img).all():
         raise AssertionError(f"{tag} slice image is not finite")
     if nonblack <= 0.5:
@@ -972,8 +1158,8 @@ def phase_parity(tag, scene, cam, bvh):
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
 
-    def render(sc, c, b, options):
-        r = Renderer(sc, c, w, h, options=options, settings=settings,
+    def render(sc, c, b, options, sets=settings):
+        r = Renderer(sc, c, w, h, options=options, settings=sets,
                      world=world, bvh=b, seed=42)
         r.step()
         return r.hdr_image(), r.rays_traced
@@ -1005,8 +1191,43 @@ def phase_parity(tag, scene, cam, bvh):
         ref_c, rays_cc = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), cdf)
         images_agree(tag, "CDF_BINARY envmap sampling, GPU vs CPU", gpu_c,
                      ref_c, rays_gc, rays_cc)
+    if tag == "gltf":
+        from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
+        from hiprt_pt_tpu_torch.ops import traverse
+
+        for strategy, spp in GLTF_PARITY:
+            other = opts.replace(direct_light_sampling=getattr(
+                LightSamplingStrategy, strategy))
+            sets = settings.replace(samples_per_frame=spp)
+            traverse.reset_march_counts()
+            gpu_s, rays_gs = render(scene, cam, bvh, other, sets)
+            calls = traverse.march_counts["calls"]
+            ref_s, rays_cs = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu),
+                                    other, sets)
+            images_agree(tag, f"{strategy}, {spp} sample(s), GPU vs CPU "
+                         f"({calls} marches on the card)", gpu_s, ref_s,
+                         rays_gs, rays_cs)
+            if not calls:
+                raise AssertionError(f"{tag}: {strategy} ran no alpha march")
     log(f"[{tag} parity] {w}x{h}, {settings.samples_per_frame} sample(s): "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def host_syncs(fn) -> collections.Counter:
+    """The host syncs of one call of ``fn`` (each a device value read on
+    the host or a blocking copy), counted by the line of the port that
+    makes them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
 
 
 def phase_renderer(tag, scene, cam, bvh):
@@ -1037,19 +1258,7 @@ def phase_renderer(tag, scene, cam, bvh):
         f"CUDA events")
     if len(frame_ms) != 2 or min(frame_ms) <= 0.0 or min(sps) <= 0.0:
         raise AssertionError(f"{tag}: step(block=True) metrics {frame_ms} {sps}")
-    # the host syncs of one frame (each a device value read on the host or
-    # a blocking copy), by the line of the port that makes them
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            r.step()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-        if "synchronizing" in str(w.message))
+    sites = host_syncs(r.step)
     log(f"[{tag} renderer] one step: {sum(sites.values())} host syncs, "
         f"{json.dumps(dict(sites.most_common()))}")
     # a frame whose last queued work is about a second of device sleep
@@ -1362,6 +1571,7 @@ def phase_probes(dev):
 def main() -> int:
     from hiprt_pt_tpu_torch import paths
 
+    t_start = time.perf_counter()
     name = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1369,22 +1579,38 @@ def main() -> int:
     build_info = phase_build()
     errs, rows, launches, per_frame = {}, {}, {}, {}
     for tag, cases in PATH_CASES:
-        scene, cam, bvh = phase_scene(tag, dev)
-        e, r = phase_kernels(tag, scene, cam, bvh, dev, cases)
+        secs = {}
+
+        def timed(phase, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            secs[phase] = time.perf_counter() - t0
+            return out
+
+        if tag == "gltf":
+            timed("files", phase_files, dev)
+        scene, cam, bvh = timed("scene", phase_scene, tag, dev)
+        e, r = timed("kernels", phase_kernels, tag, scene, cam, bvh, dev, cases)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
         rows.update(r)
         path_kernels = set(paths.ROUTES[tag])
-        counts, per_kind = phase_slice(tag, scene, cam, bvh, path_kernels)
+        counts, per_kind = timed("slice", phase_slice, tag, scene, cam, bvh,
+                                 path_kernels)
         for k in path_kernels:
             launches[k] = launches.get(k, 0) + counts[k]
         per_frame.update(per_kind)
-        phase_parity(tag, scene, cam, bvh)
+        timed("parity", phase_parity, tag, scene, cam, bvh)
         if tag in RENDERER_PATHS:
-            phase_renderer(tag, scene, cam, bvh)
+            timed("renderer", phase_renderer, tag, scene, cam, bvh)
         del scene, cam, bvh
         torch.cuda.empty_cache()
+        log(f"[{tag}] phases: "
+            f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
+            f"{time.perf_counter() - t_start:.1f} s since the start")
+    t_probes = time.perf_counter()
     p_launches, p_errs, p_rows = phase_probes(dev)
+    log(f"[probes] {time.perf_counter() - t_probes:.1f} s")
     launches.update(p_launches)
     errs.update(p_errs)
 
@@ -1427,6 +1653,7 @@ def main() -> int:
         # no PyTorch call computes a BVH walk
         "library_ms": entry[k].get("library_ms"),
     } for k in KERNELS]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

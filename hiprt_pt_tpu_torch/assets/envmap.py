@@ -4,7 +4,8 @@ Image32Bit::compute_cdf / compute_alias_table, src/Image/Image.cpp:553-660).
 
 Built on the host in numpy, with the JAX package's numbers, and moved to
 the device in an ``EnvmapData`` (assets/scene.py); lights/envmap_sampling.py
-reads them. Loading an HDR file waits for the port of ``image_io``.
+reads them. ``load_envmap`` reads a Radiance .hdr file through
+assets/image_io.py's own RGBE decoder.
 """
 
 from __future__ import annotations
@@ -13,13 +14,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .image_io import luminance, read_hdr
 from .scene import EnvmapData, vose_alias
-
-
-def luminance(rgb: np.ndarray) -> np.ndarray:
-    """Rec.709 luminance (reference: ColorRGB32F::luminance)."""
-    rgb = np.asarray(rgb)
-    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
 
 
 def sin_weighted_luminance(texels: np.ndarray) -> np.ndarray:
@@ -66,6 +62,12 @@ def build_envmap(texels: np.ndarray, intensity: float = 1.0,
         texels=t(texels), cdf=t(compute_cdf(texels)), alias_probas=t(probas),
         alias_indices=t(aliases),
         total_luminance=float(np.float32(sin_weighted_luminance(texels).sum())))
+
+
+def load_envmap(path: str, intensity: float = 1.0, device=None) -> EnvmapData:
+    """EnvmapData on ``device`` (default: the GPU) from a Radiance .hdr
+    file (assets/image_io.py:read_hdr)."""
+    return build_envmap(read_hdr(path), intensity, device=device)
 
 
 def make_test_envmap(h: int = 64, w: int = 128, kind: str = "sky") -> np.ndarray:

@@ -24,6 +24,19 @@ def perspective_matrix(vfov_rad: float, aspect: float, near: float, far: float):
     return m
 
 
+def quat_to_matrix(q) -> np.ndarray:
+    """Unit quaternion (x, y, z, w) → 3x3 rotation (GLTF component order)."""
+    x, y, z, w = [float(v) for v in q]
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ],
+        dtype=np.float32,
+    )
+
+
 @dataclasses.dataclass
 class Camera:
     """``view_inv``/``proj_inv`` feed ray generation; the forward matrices are
@@ -90,6 +103,20 @@ def camera_from_lookat(eye, target, up=(0.0, 1.0, 0.0), vfov_deg=45.0,
     view_inv[:3, 3] = eye
     view = np.linalg.inv(view_inv)
     return Camera.create(view, np.deg2rad(vfov_deg), aspect, device=device)
+
+
+def camera_from_gltf_node(translation, rotation, yfov: float, aspect: float,
+                          near=0.1, far=100.0, device=None) -> Camera:
+    """GLTF camera node → Camera on ``device`` (default: the GPU). GLTF
+    cameras look down -Z of the node frame (reference scene parsing:
+    src/Scene/SceneParser.cpp:222-276)."""
+    R = quat_to_matrix(np.asarray(rotation, dtype=np.float32))
+    t = np.asarray(translation, dtype=np.float32)
+    view_inv = np.eye(4, dtype=np.float32)
+    view_inv[:3, :3] = R
+    view_inv[:3, 3] = t
+    view = np.linalg.inv(view_inv)
+    return Camera.create(view, yfov, aspect, near, far, device=device)
 
 
 def generate_camera_rays(camera: Camera, width: int, height: int,

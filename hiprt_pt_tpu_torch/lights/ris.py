@@ -10,7 +10,9 @@ Talbot-MIS weight
 where p_hat is the unshadowed (or, with ``ris_use_visibility_target``,
 shadowed) target luminance. One winner is kept per vertex by weighted
 reservoir sampling, re-evaluated with the full BSDF and shaded with one
-visibility ray. With ``ris_proxy_target`` the candidates are weighted and
+visibility ray (in a scene with alpha textures the alpha-aware march of
+ops/traverse.py:occluded_alpha, on the same route, its draws after the
+candidates'). With ``ris_proxy_target`` the candidates are weighted and
 the BSDF candidates drawn by the proxy BSDF (models/proxy.py). The RNG draws
 come in the JAX package's order: per light candidate the light draw
 (u_sel, u1, u2, u_acc) then the reservoir's u; per BSDF candidate the
@@ -28,6 +30,7 @@ from ..models.dispatcher import (bsdf_eval, bsdf_proxy_ctx, bsdf_proxy_eval_ctx,
 from ..ops.intersect import offset_ray_origin
 from ..ops.routing import tracer
 from ..ops.tonemap import luminance
+from ..ops.traverse import shadow_blocked
 from .light_sampling import (closest_emissive_hit, emissive_pdf_of_direction,
                              sample_emissive_triangle)
 
@@ -149,8 +152,10 @@ def ris_direct_lighting(options: RenderOptions, scene, bvh, settings, mats,
     so = offset_ray_origin(p, ng, res["wi"])
     t_max_w = torch.where(torch.isfinite(res["dist"]),
                           res["dist"] * (1.0 - 1e-3), 1e30)
-    blocked = trace(bvh, so, res["wi"], t_min=1e-4, t_max=t_max_w,
-                    active=has_winner, any_hit=True).prim >= 0
+    # alpha-aware with alpha textures, on the same route (reference:
+    # FilterFunction.h applies the stochastic alpha test to every shadow ray)
+    rng_state, blocked = shadow_blocked(bvh, scene, so, res["wi"], rng_state,
+                                        t_max_w, has_winner, trace)
     n_rays = n_rays + has_winner.sum()
     contrib = torch.where((has_winner & ~blocked)[..., None],
                           integrand * W[..., None], 0.0)

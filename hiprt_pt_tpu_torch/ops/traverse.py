@@ -28,6 +28,11 @@ operation count of a kernel's bound in chip_smoke.py).
 ``nodes`` (the plain version of ``trace_meganode``): two children per row,
 leaves of up to 4 triangles embedded in the row, the near child popped
 first, the same tie rule.
+
+``occluded_alpha`` is the alpha-aware shadow test of scenes with alpha
+textures: an any-hit prune, then a march of closest hits through the
+surfaces the stochastic alpha test lets pass, on whichever traversal the
+caller routes its shadow rays through.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ import dataclasses
 import torch
 
 from ..accel.build import MEGANODE_LEAF_TRIS
+from ..core import rng as rng_mod
 from .intersect import triangle_test
+from .texture import apply_textures
 
 STACK_SIZE = 64
 STACK8 = 96                # BVH8 walks: 7·depth8 + 1 entries, depth8 <= 13
@@ -356,3 +363,112 @@ def closest_hit(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None) -> HitRe
 def occluded(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None) -> torch.Tensor:
     """Shadow-ray any-hit test. Returns (N,) bool."""
     return traverse(bvh, o, d, t_min, t_max, active, any_hit=True).prim >= 0
+
+
+# the alpha march's counts since reset_march_counts(): its calls and the
+# segments run, by the name of the traversal that ran them; with a tally,
+# also the shadow rays it was given ("rays"), those the prune found a
+# blocker for ("entered") and those that passed through at least one
+# surface ("passed"): device tensors, read on the host only by the caller
+march_counts: dict = {}
+
+
+def reset_march_counts(tally: bool = False) -> None:
+    march_counts.clear()
+    march_counts.update(calls=0, segments={})
+    if tally:
+        march_counts.update(rays=0, entered=0, passed=0)
+
+
+reset_march_counts()
+
+
+def _tally(key: str, mask: torch.Tensor) -> None:
+    """Adds mask's count to march_counts[key] when a tally was asked for."""
+    if key in march_counts:
+        march_counts[key] = march_counts[key] + mask.sum()
+
+
+def alpha_shadows(scene) -> bool:
+    """Whether a scene's shadow rays take ``occluded_alpha``: its textures
+    carry alpha (TextureAtlas.has_alpha), as the JAX package gates it."""
+    return scene.textures is not None and scene.textures.has_alpha
+
+
+def occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
+                   t_max=float("inf"), active=None, max_segments: int = 4,
+                   trace=None, prune: bool = True):
+    """Alpha-aware shadow test (reference: stochastic alpha in the
+    traversal filter function, FilterFunction.h:19-49), the JAX package's
+    ``occluded_alpha``: march up to ``max_segments`` closest hits, passing
+    through each surface with probability 1 - alpha (the hit's material,
+    its base-colour texture's alpha applied). A ray still passing after the
+    last segment is unoccluded.
+
+    ``trace``: the traversal (a wrapper of ops/cuda_traverse.py or a plain
+    walk; default ``traverse``) that serves these rays; callers pass the
+    routed tracer of their alpha-blind shadow rays. With ``prune``, an
+    alpha-blind any-hit pass first drops the rays that nothing blocks. A
+    segment draws one ``next_float`` for every ray of the batch; a segment
+    with no searching ray is skipped, draws included, as the JAX package's
+    ``lax.cond`` skips it: the check is one host sync a segment.
+    Returns (rng_state, occluded (N,) bool)."""
+    trace = traverse if trace is None else trace
+    n = o.shape[0]
+    dev = o.device
+    searching = (torch.ones((n,), dtype=torch.bool, device=dev)
+                 if active is None else active.to(torch.bool))
+    march_counts["calls"] += 1
+    _tally("rays", searching)
+    if prune:
+        searching = searching & (trace(bvh, o, d, t_min=t_min, t_max=t_max,
+                                       active=searching, any_hit=True).prim >= 0)
+    _tally("entered", searching)
+    occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+    crossed = torch.zeros_like(occluded)
+    remaining = per_ray(t_max, n, dev)
+    cur_o = o
+    name = getattr(trace, "__name__", "trace")
+    for _ in range(max_segments):
+        if not bool(searching.any()):
+            break
+        march_counts["segments"][name] = march_counts["segments"].get(name, 0) + 1
+        rec = trace(bvh, cur_o, d, t_min=t_min, t_max=remaining,
+                    active=searching, any_hit=False)
+        hit = (rec.prim >= 0) & searching
+        # the hit's material and uv, its base-colour alpha applied
+        row = scene.tri_data[rec.prim.clamp_min(0).long()]
+        mat_id = row[:, 24].contiguous().view(torch.int32)
+        w = 1.0 - rec.u - rec.v
+        uv = torch.stack(
+            [row[:, 9] * w + row[:, 11] * rec.u + row[:, 13] * rec.v,
+             row[:, 10] * w + row[:, 12] * rec.u + row[:, 14] * rec.v], dim=-1)
+        mats = scene.materials.at_indices(mat_id)
+        if scene.textures is not None:
+            mats = apply_textures(scene.textures, mats, uv)
+        rng_state, u_a = rng_mod.next_float(rng_state)
+        opaque = hit & (u_a < mats.alpha_opacity)
+        occluded = occluded | opaque
+        # pass-through rays go on from just past the hit
+        passthrough = hit & ~opaque
+        crossed = crossed | passthrough
+        seg = torch.where(torch.isfinite(rec.t), rec.t, 0.0)
+        cur_o = torch.where(passthrough[:, None], cur_o + d * (seg + 1e-4)[:, None],
+                            cur_o)
+        remaining = torch.where(passthrough, remaining - seg - 1e-4, remaining)
+        searching = passthrough
+    _tally("passed", crossed)
+    return rng_state, occluded
+
+
+def shadow_blocked(bvh, scene, o, d, rng_state, t_max, active, trace):
+    """(rng_state, blocked (N,) bool) of the shadow rays (o, d) from t_min =
+    1e-4 to t_max: through ``occluded_alpha`` on ``trace`` when the scene's
+    textures carry alpha (alpha_shadows) and a PCG stream is given, which it
+    then advances; else one alpha-blind any-hit trace on ``trace``, which
+    draws nothing (the JAX package's gates at its three call sites)."""
+    if alpha_shadows(scene) and rng_state is not None:
+        return occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
+                              t_max=t_max, active=active, trace=trace)
+    return rng_state, trace(bvh, o, d, t_min=1e-4, t_max=t_max, active=active,
+                            any_hit=True).prim >= 0

@@ -1,4 +1,4 @@
-"""The six paths that chip_smoke.py drives and profile_frame.py profiles:
+"""The seven paths that chip_smoke.py drives and profile_frame.py profiles:
 each path's scene, camera, BVH and render options, at the 16:9 aspect of a
 1920x1080 frame.
 
@@ -34,34 +34,71 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   ALIAS_TABLE envmap sampling with BSDF MIS, 6 bounces, ambient ENVMAP at
   intensity 1 and identity rotations; every ray, the envmap's any-hit
   shadow rays to t_max = inf among them, goes through trace_meganode.
+- ``gltf``: the headline configuration reached through the system's normal
+  entry point, a scene file: the stress interior at tri_scale=1 (259,120
+  triangles, 120 emitters, 18 textures) written as a binary glTF
+  (assets/gltf_testscene.py:write_glb) with its camera as a camera node and
+  cutouts on the materials of its large occluders (GLTF_CUTOUTS: the brick
+  walls, the columns and the tables), loaded back with
+  assets/loader.py:load_scene_file (thread pipeline, BVH on its thread).
+  The cutouts give the scene alpha textures, so every emissive shadow ray
+  takes the alpha-aware march (ops/traverse.py:occluded_alpha): an any-hit
+  prune and closest-hit segments; bench.py's make_renderer options (RIS);
+  trace_coherent and trace_incoherent.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 
 import torch
 
 from .core.device import resolve_device
 
-PATHS = ("stress", "cornell", "stress14", "headline", "restir", "envmap")
+PATHS = ("stress", "cornell", "stress14", "headline", "restir", "envmap",
+         "gltf")
 # the kernels that serve each path's (coherent, incoherent) rays
 ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "cornell": ("trace_meganode", "trace_meganode"),
           "stress14": ("trace_stream8", "trace_lane8log"),
           "headline": ("trace_coherent", "trace_incoherent"),
           "restir": ("trace_coherent", "trace_incoherent"),
-          "envmap": ("trace_meganode", "trace_meganode")}
+          "envmap": ("trace_meganode", "trace_meganode"),
+          "gltf": ("trace_coherent", "trace_incoherent")}
 # the paths with the principled BSDF and textures under RIS or ReSTIR
 # (bench.py's make_renderer)
-_RIS_PATHS = ("stress14", "headline", "restir")
+_RIS_PATHS = ("stress14", "headline", "restir", "gltf")
 ASPECT = 16 / 9
+# the gltf path's alpha (MASK) materials, generate_stress_scene's large
+# occluders: m_brick and m_brick2 (the four walls), m_column (the 12
+# columns) and m_table (the 15 tables, boxes)
+GLTF_CUTOUTS = (2, 3, 4, 17)
+
+
+def write_gltf_scene(folder: str) -> str:
+    """Write the gltf path's scene into ``folder`` as ``stress.glb``: the
+    stress interior (generate_stress_scene(seed=7, tri_scale=1.0,
+    num_emitters=120, texture_size=256)) with its camera and GLTF_CUTOUTS;
+    returns the file's path."""
+    from .assets.gltf_testscene import write_glb
+    from .assets.stress import generate_stress_scene
+
+    parsed = generate_stress_scene(seed=7, tri_scale=1.0, num_emitters=120,
+                                   texture_size=256)
+    out = os.path.join(folder, "stress.glb")
+    write_glb(out, parsed, alpha_materials=GLTF_CUTOUTS)
+    return out
 
 
 def load(path: str, device=None):
     """(scene, camera, bvh, seconds) of a path on ``device`` (default: the
     GPU); ``seconds`` holds the host set-up times, {"scene": building the
-    scene, "bvh": building the BVH and moving its tables to the device}."""
+    scene, "bvh": building the BVH and moving its tables to the device}; on
+    the gltf path {"write": generating and writing the .glb, and
+    load_scene_file's stages: "parse", "images", "atlas", "bvh", "scene"
+    and "total"}."""
     from .accel.build import build_bvh
     from .assets.cornell import cornell_spheres_arrays
     from .assets.envmap import build_envmap, make_test_envmap
@@ -74,6 +111,18 @@ def load(path: str, device=None):
         raise ValueError(f"unknown path {path!r}; the paths are {PATHS}")
     device = resolve_device(device)
     t0 = time.perf_counter()
+    if path == "gltf":
+        from .assets.loader import load_scene_file
+
+        with tempfile.TemporaryDirectory() as tmp:
+            glb = write_gltf_scene(tmp)
+            secs = {"write": time.perf_counter() - t0}
+            scene, cam, bvh = load_scene_file(glb, aspect=ASPECT, parallel=True,
+                                              with_bvh=True, device=device,
+                                              timings=secs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return scene, cam, bvh, secs
     if path in ("cornell", "envmap"):
         v, f, m, rows, cam_kw = cornell_spheres_arrays(ASPECT)
         envmap = (build_envmap(make_test_envmap(64, 128, "sky"), device=device)
@@ -100,9 +149,9 @@ def slice_options(path: str):
     defaults, i.e. the full principled BSDF with dispersion and thin film,
     MIS NEE. The 2.04M-triangle path and the headline path: bench.py's
     make_renderer, i.e. the defaults with RIS (4 light + 1 BSDF candidate,
-    proxy target, 128-ray light tiles). The ReSTIR path: the same with
-    RESTIR_DI and the default ReSTIRDISettings. All these with 4 bounces,
-    one sample per frame and ambient NONE. The envmap path: run_configs.py's
+    proxy target, 128-ray light tiles); so does the gltf path. The ReSTIR
+    path: the same with RESTIR_DI and the default ReSTIRDISettings. All
+    these with 4 bounces, one sample per frame and ambient NONE. The envmap path: run_configs.py's
     config 3, i.e. the Cornell path's options with ALIAS_TABLE envmap
     sampling and BSDF MIS, 6 bounces, one sample per frame and ambient
     ENVMAP."""

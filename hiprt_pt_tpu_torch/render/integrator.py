@@ -26,12 +26,15 @@ an envmap and envmap sampling on, every vertex also draws one envmap
 direction (lights/envmap_sampling.py) and traces its any-hit shadow ray to
 t_max = inf on the incoherent route, under every light strategy.
 Textures modulate the materials at every vertex and normal maps the shading
-normals. The RNG draws happen in the JAX package's order: the camera pass
-draws jx, jy; each bounce draws u_lam (with ``do_dispersion``), u_alpha,
-then the NEE or RIS draws, the envmap sample's draws, then the BSDF
-sample's draws (the override's pair, or the principled BSDF's u_sel, u1,
-u2, u3), then u_rr. The host syncs once per bounce, to skip bounces with no
-live ray.
+normals. In a scene with alpha textures the emissive shadow rays of the NEE
+and RIS take the alpha-aware march (ops/traverse.py:occluded_alpha) on the
+same route. The RNG draws happen in the JAX package's order: the camera
+pass draws jx, jy; each bounce draws u_lam (with ``do_dispersion``),
+u_alpha, then the NEE or RIS draws (the march's draws after the light's and
+the BSDF eval), the envmap sample's draws, then the BSDF sample's draws
+(the override's pair, or the principled BSDF's u_sel, u1, u2, u3), then
+u_rr. The host syncs once per bounce, to skip bounces with no live ray, and
+in the march once per segment.
 """
 
 from __future__ import annotations
@@ -68,16 +71,7 @@ from ..ops.routing import tracer as _tracer
 from ..ops.sampling import balance_heuristic
 from ..ops.texture import apply_normal_map, apply_textures
 from ..ops.tonemap import luminance
-
-
-def check_supported(scene) -> None:
-    """Raise for the scene features the port does not carry yet (naming
-    their ROADMAP item); render/renderer.py:render_step calls it before any
-    pass, ReSTIR's included."""
-    if scene.textures is not None and scene.textures.has_alpha:
-        raise NotImplementedError(
-            "alpha textures need the alpha-aware shadow march, which is not "
-            "ported yet (ROADMAP: ops/traverse.py occluded_alpha)")
+from ..ops.traverse import shadow_blocked
 
 
 def _nee_enabled(options: RenderOptions) -> bool:
@@ -229,11 +223,11 @@ def _emissive_nee(options: RenderOptions, scene, bvh, settings, mats, p, ns,
                                 {"eta_rel": eta_rel})
         cand = active & ls["valid"] & (cos_i > 0.0) & (ls["pdf"] > 0.0)
         so = offset_ray_origin(p, ng, wi)
-        shadow_blocked = occluded(bvh, so, wi, t_min=1e-4,
-                                  t_max=ls["dist"] * (1.0 - 1e-3),
-                                  active=cand, any_hit=True).prim >= 0
+        t_max = ls["dist"] * (1.0 - 1e-3)
+        rng_state, blocked = shadow_blocked(bvh, scene, so, wi, rng_state,
+                                            t_max, cand, occluded)
         n_shadow = n_shadow + cand.sum()
-        vis = cand & ~shadow_blocked
+        vis = cand & ~blocked
         c = f * ls["radiance"] * (cos_i / ls["pdf"].clamp_min(1e-12))[..., None]
         if options.direct_light_sampling == LightSamplingStrategy.MIS:
             c = c * balance_heuristic(ls["pdf"], bsdf_pdf)[..., None]

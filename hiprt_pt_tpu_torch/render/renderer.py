@@ -33,7 +33,7 @@ from ..ops.texture import apply_textures
 from ..ops.tonemap import luminance, resolve_accumulation, tonemap_gamma
 from ..restir import di
 from ..utils.perf import PerformanceMetrics
-from .integrator import camera_rays_pass, check_supported, render_sample
+from .integrator import camera_rays_pass, render_sample
 
 
 def run_stage(_name: str, fn, *args, **kw):
@@ -106,7 +106,6 @@ def render_step(options: RenderOptions, width: int, height: int, scene,
     state's ``sample_count``, which advances sample by sample, so one call
     of n samples is the same as n calls of one. ``stage``: how each pass of
     the ReSTIR pipeline runs (restir_reuse)."""
-    check_supported(scene)
     for _ in range(n_samples):
         state = _sample_step(options, width, height, scene, bvh, state,
                              camera, settings, world, stage)

@@ -829,3 +829,70 @@ def test_renderer_frame_loop_on_the_card(gpu_envmap, monkeypatch):
     got, want = r.hdr_image(), ref.hdr_image()
     close = np.all(np.abs(got - want) <= 1e-3 + 1e-3 * np.abs(want), axis=-1)
     assert close.mean() >= 0.98
+
+
+@pytest.fixture(scope="module")
+def gpu_gltf(tmp_path_factory):
+    """The stress interior at tri_scale 0.01 with the gltf path's cutouts,
+    written as a .glb and loaded on the card with imageio unimportable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.assets.gltf_testscene import write_glb
+    from hiprt_pt_tpu_torch.assets.loader import load_scene_file
+    from hiprt_pt_tpu_torch.assets.stress import generate_stress_scene
+
+    dev = torch.device("cuda:0")
+    path = str(tmp_path_factory.mktemp("gltf") / "stress.glb")
+    write_glb(path, generate_stress_scene(tri_scale=0.01, texture_size=32),
+              alpha_materials=paths.GLTF_CUTOUTS)
+    saved = {k: sys.modules.pop(k, None) for k in ("imageio", "imageio.v3")}
+    sys.modules["imageio"] = sys.modules["imageio.v3"] = None
+    try:
+        scene, cam, bvh = load_scene_file(path, aspect=2.0, parallel=True,
+                                          with_bvh=True, device=dev)
+    finally:
+        for k, mod in saved.items():
+            if mod is None:
+                del sys.modules[k]
+            else:
+                sys.modules[k] = mod
+    assert scene.textures.has_alpha and scene.tri_data.device.type == "cuda"
+    return scene, cam, bvh, dev
+
+
+@pytest.mark.parametrize("kernel", ["trace_coherent", "trace_incoherent"])
+def test_alpha_march_kinds_match_plain(gpu_gltf, kernel):
+    """The alpha march's two ray kinds on the card: its any-hit prune and
+    its closest-hit segments (origins moved past a surface, t_max what is
+    left) through the kernel give the plain walk's hits, t bit-identical,
+    so the march ends with the same occluded mask and RNG state."""
+    from hiprt_pt_tpu_torch.core import rng
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+
+    scene, _cam, bvh, dev = gpu_gltf
+    o, d, t_max, active = _rays(dev, n=65536, seed=4)
+    t_max = torch.where(torch.isinf(t_max), 3.0, t_max)  # shadow rays end
+    calls = []
+
+    def held(bvh, o, d, t_min, t_max, active, any_hit):
+        rk = getattr(ct, kernel)(bvh, o, d, t_min, t_max, active, any_hit=any_hit)
+        rp = plain.traverse(bvh, o, d, t_min, t_max, active, any_hit=any_hit)
+        calls.append(any_hit)
+        assert torch.equal(rk.prim >= 0, rp.prim >= 0)
+        if not any_hit:
+            assert torch.equal(rk.prim, rp.prim)
+            assert torch.equal(rk.t, rp.t)
+        return rk
+
+    before = ct.launch_counts[kernel]
+    state = rng.seed(torch.arange(o.shape[0], device=dev), 0, 5)
+    s_k, occ_k = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
+                                      active=active, trace=held)
+    s_p, occ_p = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
+                                      active=active, trace=plain.traverse)
+    assert ct.launch_counts[kernel] == before + len(calls)
+    assert calls[0] and not any(calls[1:]) and len(calls) >= 3
+    assert torch.equal(occ_k, occ_p) and torch.equal(s_k, s_p)
+    assert 0 < int(occ_k.sum()) < int(active.sum())

@@ -253,29 +253,6 @@ def test_renderer_image_matches_jax(both):
     assert r.state.sample_count == 2
 
 
-def test_unsupported_features_raise(both):
-    """Only alpha textures are still refused (they need the alpha-aware
-    shadow march), under MIS and ReSTIR DI alike, before any pass."""
-    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
-    from hiprt_pt_tpu_torch.core.state import init_render_state
-    from hiprt_pt_tpu_torch.render.renderer import render_step
-
-    opts, settings, world = _port_config()
-    restir = opts.replace(direct_light_sampling=ts.LightSamplingStrategy.RESTIR_DI)
-    # textures are ported; alpha textures need the alpha-aware shadow march
-    scene, _cam = load_stress_scene(tri_scale=0.01, with_textures=True,
-                                  device="cpu")
-    assert scene.textures is not None and not scene.textures.has_alpha
-    alpha = dataclasses.replace(
-        scene, textures=dataclasses.replace(scene.textures, has_alpha=True))
-    for o in (opts, restir):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_step(o, 16, 8, alpha, both["tbvh"],
-                        init_render_state(16, 8, device="cpu",
-                                          with_restir=o is restir),
-                        both["tcam"], settings, world)
-
-
 @pytest.mark.parametrize("feature", ["white-furnace", "automatic-stack",
                                      "envmap-restir"])
 def test_formerly_refused_features_render(both, feature):
@@ -315,11 +292,11 @@ def test_formerly_refused_features_render(both, feature):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax, flax and the JAX package
-    made unimportable; so does chip_smoke.py."""
+    """Every module of the port imports with jax, flax, the JAX package and
+    imageio made unimportable; so does chip_smoke.py."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'hiprt_pt_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'hiprt_pt_tpu', 'imageio'):\n"
         "    sys.modules[m] = None\n"
         "import hiprt_pt_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -327,7 +304,8 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "assert not any(k.split('.')[0] in ('jax', 'flax', 'hiprt_pt_tpu')\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'hiprt_pt_tpu',\n"
+        "                                   'imageio')\n"
         "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print(len(names))\n"
         "print(' '.join(names))\n"
@@ -338,11 +316,16 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     count, names = out.stdout.strip().splitlines()[-2:]
     assert int(count) >= 25
-    # the modules of the frame loop and the envmaps among them
+    # the modules of the frame loop, the envmaps and the scene files among them
     assert {"hiprt_pt_tpu_torch.assets.envmap",
             "hiprt_pt_tpu_torch.lights.envmap_sampling",
             "hiprt_pt_tpu_torch.render.renderer",
-            "hiprt_pt_tpu_torch.utils.perf"} <= set(names.split())
+            "hiprt_pt_tpu_torch.utils.perf",
+            "hiprt_pt_tpu_torch.assets.gltf",
+            "hiprt_pt_tpu_torch.assets.gltf_testscene",
+            "hiprt_pt_tpu_torch.assets.image_io",
+            "hiprt_pt_tpu_torch.assets.loader",
+            "hiprt_pt_tpu_torch.utils.threads"} <= set(names.split())
 
 
 def test_render_state_replace_is_not_in_place(both):
