@@ -15,7 +15,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 dg_probe_kernel fails the phase), and the registers per
                 thread, local and shared memory and resident blocks per SM
                 of the seven redesigned kernels in both versions.
-  Then, for each of the six paths of hiprt_pt_tpu_torch/paths.py:
+  Then, for each of the first seven paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
                 which must be the path's routes (paths.ROUTES).
@@ -86,7 +86,28 @@ Phases, each of which passes or raises (any failure exits non-zero):
   run_configs.py's config 3 (the Cornell box with the "sky" test envmap,
   the principled BSDF, MIS, alias-table envmap sampling with BSDF MIS, 6
   bounces; trace_meganode, the envmap's shadow rays a new kind).
-  7. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
+  7. cli      — the eighth path, the system's documented command
+                (paths.cli_argv: python -m hiprt_pt_tpu_torch.app.cli on
+                the gltf path's .glb with ReSTIR DI, the à-trous denoiser,
+                4 bounces, 4 samples in frames of 2 at 1920x1080, a PNG, an
+                HDR and a checkpoint): e. main(argv) in this process with
+                the launch counts reset just before and read just after,
+                trace_coherent and trace_incoherent held against
+                launches_per_frame for each sample (plus the march's
+                segments), ms/frame and spp/s from Renderer.metrics, the
+                seconds of load, BVH, render, denoise and the files, peak
+                device memory; d. à-trous with and without the variance
+                maps and the CNN on its 1080p AOVs, card against CPU, with
+                ms between CUDA events and host launches a call; a. the
+                same command as a subprocess (exit 0, the PNG decodes to
+                1920x1080x3); c. the command at 256x144 and 2 samples on
+                the card and with --cpu (a second subprocess, beside the
+                first and the in-process runs), raw and denoised HDR
+                under the image gate; b. 2 samples with
+                --checkpoint, then --resume to 4, against e's state leaf by
+                leaf (bit-identical, or the image gate and the leaves that
+                differ).
+  8. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
                 r5probe2.py), a path with no frame: its entry point main()
                 at the TPU probe's shapes with the launch counts reset just
                 before and read just after; each probe kernel against its
@@ -262,6 +283,12 @@ EARLIER = {"trace_stream8": ("trace_stream8_packet", "traverse8", True),
            "trace_coherent": ("trace_coherent_block", "traverse", False)}
 # a table past the shared-memory size of dg_probe_kernel's strips: (S, tiles)
 P2_PAST_SHARED = (30000, 2)
+# the cli path: the size and samples of its card-vs-CPU run, and the
+# tolerances (atol, rtol) of the denoisers on the card against the CPU
+CLI_PARITY = (256, 144, 2)
+ATROUS_TOL, CNN_TOL = (1e-6, 1e-5), (1e-5, 1e-4)
+# the profiler's names of a kernel launch from the host
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
 
 
 def log(*a):
@@ -1322,6 +1349,277 @@ def phase_renderer(tag, scene, cam, bvh):
         f"{float(np.abs(nrm).mean()):.6f}")
 
 
+def run_cli(argv, stats=None):
+    """app/cli.py's main(argv) in this process; returns the Renderer it
+    made (kept by a subclass put in place for the call). Raises unless
+    main returns 0."""
+    from hiprt_pt_tpu_torch.app.cli import main
+    from hiprt_pt_tpu_torch.render import renderer as renderer_mod
+
+    made, real = [], renderer_mod.Renderer
+
+    class Kept(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    renderer_mod.Renderer = Kept
+    try:
+        rc = main(argv, stats)
+    finally:
+        renderer_mod.Renderer = real
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"cli main{argv} returned {rc}")
+    return made[0]
+
+
+def host_launches(calls) -> dict:
+    """{name: kernel launches that one call of fn makes from the host} for
+    each (name, fn) of ``calls``, in one torch.profiler session: the
+    cudaLaunchKernel events inside each call's record_function range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls:
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
+    names = {name for name, _fn in calls}
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = {e.name: e.time_range for e in events if e.name in names}
+    starts = [e.time_range.start for e in events if e.name in LAUNCH_EVENTS]
+    return {n: sum(r.start <= t <= r.end for t in starts)
+            for n, r in spans.items()}
+
+
+def states_differ(a, b) -> list:
+    """The state leaves (field paths) in which two render states differ."""
+    from hiprt_pt_tpu_torch.render.checkpoint import _leaves
+
+    return [".".join(name) for (name, x), (_, y) in zip(_leaves(a), _leaves(b))
+            if not (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor)
+                    else x == y)]
+
+
+def phase_cli_denoisers(r):
+    """d. The denoisers on the cli path's 1080p AOVs (render/denoise.py:
+    collect_aovs of the renderer ``r``) on the card: ms between CUDA events
+    and host launches of one call each. Returns the check of their results
+    against the same functions on the CPU, a callable that raises, which
+    phase_cli runs beside the subprocess."""
+    import importlib
+
+    from hiprt_pt_tpu_torch.render.denoise import atrous_denoise, collect_aovs
+
+    nn = importlib.import_module("hiprt_pt_tpu_torch.render.denoise_nn")
+    dev = r.device
+    hdr, alb, nrm, var, spp = collect_aovs(r)
+    alb, nrm = torch.from_numpy(alb.copy()).to(dev), torch.from_numpy(nrm.copy()).to(dev)
+    params = nn.load_params(device=dev)
+    calls = {  # name: (fn of (hdr, alb, nrm, var, spp, params, the filter's output))
+        "atrous_denoise, variance maps":
+            lambda h, a, n, v, s, p, f: atrous_denoise(h, a, n, variance=v,
+                                                       spp_map=s),
+        "atrous_denoise, fixed sigma":
+            lambda h, a, n, v, s, p, f: atrous_denoise(h, a, n),
+        "denoise_nn.apply (cuDNN, f32)":
+            lambda h, a, n, v, s, p, f: nn.apply(p, h, f, a, n, v, s),
+    }
+    card, ms, run = {}, {}, {}
+    for name, fn in calls.items():
+        args = (hdr, alb, nrm, var, spp, params,
+                card.get("atrous_denoise, variance maps"))
+        run[name] = (lambda fn=fn, args=args: fn(*args))
+        ms[name], card[name] = cuda_ms(run[name])
+    launches = host_launches(list(run.items()))
+    for name in calls:
+        log(f"[cli denoise] {name} at {WIDTH}x{HEIGHT}: {ms[name]:.2f} ms, "
+            f"{launches[name]} host launches a call")
+    inputs = [x.cpu() for x in (hdr, alb, nrm, var, spp)]
+    card = {k: v.cpu() for k, v in card.items()}
+
+    def check():
+        ref = {}
+        params_cpu = nn.load_params(device="cpu")
+        for name, fn in calls.items():
+            ref[name] = fn(*inputs, params_cpu,
+                           ref.get("atrous_denoise, variance maps"))
+            err = float((card[name] - ref[name]).abs().max())
+            log(f"[cli denoise] {name}: card vs CPU max |diff| {err:.3e}")
+            atol, rtol = CNN_TOL if name.startswith("denoise_nn") else ATROUS_TOL
+            torch.testing.assert_close(card[name], ref[name], atol=atol, rtol=rtol)
+
+    return check
+
+
+def phase_cli(dev) -> dict:
+    """The cli path: python -m hiprt_pt_tpu_torch.app.cli on the gltf path's
+    scene file with paths.CLI_FLAGS. e: the command in this process (the
+    main path: launch counts reset just before and read just after, held
+    against launches_per_frame for each of its samples); d: the denoisers
+    on its AOVs, card vs CPU; a: the command as a subprocess, whose PNG
+    decodes to 1920x1080x3; c: the command at CLI_PARITY on the card and
+    with --cpu (a second subprocess, its raw HDR from its checkpoint), raw
+    and denoised HDR under the image gate; b: 2 samples with --checkpoint,
+    then --resume to 4, against e's render. The two subprocesses run
+    beside c's card run, b and d's CPU side. Returns e's launches by
+    kernel."""
+    import tempfile
+
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.assets.image_io import decode_png
+    from hiprt_pt_tpu_torch.core.state import init_render_state
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse
+    from hiprt_pt_tpu_torch.ops.pixel_order import unscramble
+    from hiprt_pt_tpu_torch.ops.tonemap import resolve_accumulation
+    from hiprt_pt_tpu_torch.render.checkpoint import load_checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        def folder(name):
+            os.makedirs(os.path.join(tmp, name), exist_ok=True)
+            return os.path.join(tmp, name)
+
+        t0 = time.perf_counter()
+        glb = paths.write_gltf_scene(tmp)
+        log(f"[cli] wrote {os.path.basename(glb)} in "
+            f"{time.perf_counter() - t0:.3f} s; argv "
+            f"{paths.cli_argv('stress.glb', '<dir>')}")
+
+        # e. the main path
+        argv = paths.cli_argv(glb, folder("e"))
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        ct.reset_launch_counts()
+        traverse.reset_march_counts()
+        r = run_cli(argv, stats)
+        launches = dict(ct.launch_counts)
+        segments = dict(traverse.march_counts["segments"])
+        peak = torch.cuda.max_memory_allocated()
+        per_kind = launches_per_frame("cli", r.scene)
+        samples = r.state.sample_count
+        log(f"[cli main] {stats['samples']} samples in frames of "
+            f"{r.settings.samples_per_frame}: {stats['frame_ms']:.1f} ms/frame "
+            f"({stats['frame_ms'] / r.settings.samples_per_frame:.1f} ms a "
+            f"sample), {stats['samples_per_s']:.3f} spp/s (Renderer.metrics); "
+            f"seconds: load {stats['load']:.3f}, bvh {stats['bvh']:.3f}, render "
+            f"{stats['render']:.3f}, denoise {stats['denoise']:.3f}, png "
+            f"{stats['png']:.3f}, hdr {stats['hdr']:.3f}, checkpoint "
+            f"{stats['checkpoint']:.3f}; {stats['rays']} rays; peak device "
+            f"memory {peak / 2**30:.2f} GiB; launches {launches}, march "
+            f"segments {segments}; a sample by ray kind {per_kind}")
+        for k, v in launches.items():
+            want = segments.get(k, 0) + samples * sum(
+                n for (_, kk, _kind), n in per_kind.items() if kk == k)
+            if (v > 0) != (k in paths.ROUTES["cli"]) or v != want:
+                raise AssertionError(f"the cli path launched {k} {v} times in "
+                                     f"{samples} samples; its ray kinds make {want}")
+        os.remove(os.path.join(tmp, "e", "cli.npz"))  # read by no later step
+        hdr_e = r.hdr_image()
+        if samples != 4 or not np.isfinite(hdr_e).all():
+            raise AssertionError(f"the cli path rendered {samples} samples, "
+                                 f"finite {np.isfinite(hdr_e).all()}")
+
+        # d. the denoisers on its AOVs, timed on the card before the
+        # subprocess starts and checked against the CPU beside it
+        t0 = time.perf_counter()
+        check_denoisers = phase_cli_denoisers(r)
+        log(f"[cli denoise] on the card: {time.perf_counter() - t0:.1f} s")
+
+        # a, and c's CPU side: the command as two subprocesses, the
+        # documented command on the card and the parity size with --cpu,
+        # beside c's card run, b and d's CPU side in this process
+        w, h, spp = CLI_PARITY
+        small = [f"--w={w}", f"--h={h}", f"--samples={spp}"]
+        procs = {}
+        t_sub = time.perf_counter()
+        try:
+            for name, extra in (("a", []), ("c_cpu", small + ["--cpu"])):
+                with open(os.path.join(tmp, f"{name}.log"), "w") as out:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m", "hiprt_pt_tpu_torch.app.cli",
+                         *paths.cli_argv(glb, folder(name)), *extra], cwd=here,
+                        stdout=out, stderr=subprocess.STDOUT)
+            # c. the card's run at CLI_PARITY
+            rg_stats = {}
+            rg = run_cli(paths.cli_argv(glb, folder("c_gpu")) + small, rg_stats)
+            # b. checkpoint and resume against e
+            half = os.path.join(folder("b"), "half")
+            run_cli(paths.cli_argv(glb, os.path.join(tmp, "b"))
+                    + ["--samples=2", f"--checkpoint={half}"])
+            rb = run_cli(paths.cli_argv(glb, os.path.join(tmp, "b"))
+                         + [f"--resume={half}.npz"])
+            t0 = time.perf_counter()
+            check_denoisers()
+            log(f"[cli denoise] the CPU's results: "
+                f"{time.perf_counter() - t0:.1f} s")
+            exits = {name: p.wait(timeout=900) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        sub_s = time.perf_counter() - t_sub
+        for name, code in exits.items():
+            if code != 0:
+                with open(os.path.join(tmp, f"{name}.log")) as f:
+                    raise AssertionError(f"the cli subprocess {name} exited "
+                                         f"{code}:\n{f.read()[-2000:]}")
+
+        hdr_b = rb.hdr_image()
+        diff = states_differ(rb.state, r.state)
+        err = float(np.abs(hdr_b - hdr_e).max())
+        log(f"[cli resume] 2 samples, checkpoint, --resume to "
+            f"{rb.state.sample_count}: max |HDR - straight run's| {err:.3e}; "
+            f"state leaves that differ: {diff or 'none (bit-identical)'}")
+        if rb.state.sample_count != 4:
+            raise AssertionError("the resumed run did not reach 4 samples")
+        if diff:
+            images_agree("cli", "resumed vs straight", hdr_b, hdr_e,
+                         int(rb.state.rays_traced), int(r.state.rays_traced))
+
+        with open(os.path.join(tmp, "a", "cli.png"), "rb") as f:
+            png = decode_png(f.read())
+        same = _read_bytes(os.path.join(tmp, "a", "cli.hdr")) == _read_bytes(
+            os.path.join(tmp, "e", "cli.hdr"))
+        log(f"[cli subprocess] a and c_cpu exited 0 within {sub_s:.1f} s of "
+            f"their start; a's PNG {png.shape}, mean {float(png.mean()):.3f}; "
+            f"its .hdr byte-identical to the in-process run's: {same}")
+        if png.shape != (HEIGHT, WIDTH, 3):
+            raise AssertionError(f"the cli PNG decodes to {png.shape}")
+
+        cpu_state = load_checkpoint(
+            os.path.join(tmp, "c_cpu", "cli.npz"),
+            init_render_state(w, h, device="cpu", with_restir=True))
+        raw_cpu = unscramble(resolve_accumulation(
+            cpu_state.accum, cpu_state.sample_count).numpy(), w, h)[::-1]
+        rays_cpu = int(cpu_state.rays_traced)
+        log(f"[cli parity] {w}x{h}, {spp} samples: the card's render "
+            f"{rg_stats['render']:.2f} s")
+        images_agree("cli", "raw HDR, card vs CPU", rg.hdr_image(), raw_cpu,
+                     rg_stats["rays"], rays_cpu)
+        images_agree("cli", "denoised HDR (the .hdr files), card vs CPU",
+                     _read_hdr(tmp, "c_gpu"), _read_hdr(tmp, "c_cpu"),
+                     rg_stats["rays"], rays_cpu)
+        del r, rb, rg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _read_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _read_hdr(tmp, name):
+    from hiprt_pt_tpu_torch.assets.image_io import read_hdr
+
+    return read_hdr(os.path.join(tmp, name, "cli.hdr"))
+
+
 def probe_bound(cfg):
     """(ms, "bytes" or "operations") of a probe configuration on the H100
     SXM, from the work of the function the probe returns: the larger of its
@@ -1608,6 +1906,11 @@ def main() -> int:
         log(f"[{tag}] phases: "
             f"{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
             f"{time.perf_counter() - t_start:.1f} s since the start")
+    t_cli = time.perf_counter()
+    for k, v in phase_cli(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[cli] {time.perf_counter() - t_cli:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s since the start")
     t_probes = time.perf_counter()
     p_launches, p_errs, p_rows = phase_probes(dev)
     log(f"[probes] {time.perf_counter() - t_probes:.1f} s")

@@ -1,9 +1,10 @@
 """Carry scenes, BVHs and render states across from the JAX package.
 
 The JAX package's ``SceneData`` (with its texture atlas and envmap),
-``BVHData``, ``RenderState``, ReSTIR ``Reservoir`` and ``WorldSettings`` are
-given as dicts of numpy arrays keyed by field name (nested
-dicts for the material bank, the G-buffers and the reservoirs), so this
+``BVHData``, ``RenderState``, ReSTIR ``Reservoir``, ``WorldSettings`` and the
+learned denoiser's weights are given as dicts of numpy arrays keyed by
+field name (nested dicts for the material bank, the G-buffers and the
+reservoirs), so this
 module imports nothing of JAX. ``to_numpy`` turns a port dataclass back into
 such a dict. Each ``*_from_numpy`` puts its tensors on ``device``: the GPU
 unless the caller passes ``device="cpu"``.
@@ -178,6 +179,21 @@ def state_from_numpy(d: dict, device=None) -> RenderState:
         else:
             kw[f.name] = _t(v, device)
     return RenderState(**kw)
+
+
+def denoiser_params_from_numpy(d: dict, device=None):
+    """render/denoise_nn.py's DenoiserNet from the JAX package's denoiser
+    weights (``w{i}`` HWIO, ``b{i}``, as its data_denoiser.npz holds them):
+    each weight goes to OIHW."""
+    from .render.denoise_nn import DenoiserNet
+
+    net = DenoiserNet()
+    with torch.no_grad():
+        for i, conv in enumerate(net.convs):
+            conv.weight.copy_(torch.from_numpy(
+                np.asarray(d[f"w{i}"], np.float32).transpose(3, 2, 0, 1).copy()))
+            conv.bias.copy_(torch.from_numpy(np.asarray(d[f"b{i}"], np.float32)))
+    return net.to(resolve_device(device))
 
 
 def to_numpy(obj):

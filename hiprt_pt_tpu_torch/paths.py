@@ -1,6 +1,6 @@
-"""The seven paths that chip_smoke.py drives and profile_frame.py profiles:
+"""The eight paths that chip_smoke.py drives and profile_frame.py profiles:
 each path's scene, camera, BVH and render options, at the 16:9 aspect of a
-1920x1080 frame.
+1920x1080 frame; for the cli path also its command line.
 
 - ``stress``: the procedural stress interior (259,120 triangles, 120
   emitters), Lambertian override, MIS NEE; camera rays and the first
@@ -45,6 +45,16 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   takes the alpha-aware march (ops/traverse.py:occluded_alpha): an any-hit
   prune and closest-hit segments; bench.py's make_renderer options (RIS);
   trace_coherent and trace_incoherent.
+- ``cli``: the system's documented command (README.md: ``python -m
+  hiprt_pt_tpu.app.cli ... --strategy=restir --denoise``) through the
+  port's app/cli.py on the gltf path's scene file: ``cli_argv`` gives
+  ``python -m hiprt_pt_tpu_torch.app.cli stress.glb`` the flags of
+  CLI_FLAGS (ReSTIR DI, the à-trous denoiser, 4 bounces, 4 samples in
+  frames of 2 at 1920x1080) and writes a PNG, an HDR and a checkpoint.
+  Cut against the README's command: 4 samples, not 256; 4 bounces, as
+  bench.py's headline, not 8; 1920x1080, as every path, not 1280x720.
+  ReSTIR's visibility rays take the alpha march; the world keeps the
+  CLI's default uniform ambient; trace_coherent and trace_incoherent.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ import torch
 from .core.device import resolve_device
 
 PATHS = ("stress", "cornell", "stress14", "headline", "restir", "envmap",
-         "gltf")
+         "gltf", "cli")
 # the kernels that serve each path's (coherent, incoherent) rays
 ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "cornell": ("trace_meganode", "trace_meganode"),
@@ -66,15 +76,28 @@ ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "headline": ("trace_coherent", "trace_incoherent"),
           "restir": ("trace_coherent", "trace_incoherent"),
           "envmap": ("trace_meganode", "trace_meganode"),
-          "gltf": ("trace_coherent", "trace_incoherent")}
+          "gltf": ("trace_coherent", "trace_incoherent"),
+          "cli": ("trace_coherent", "trace_incoherent")}
 # the paths with the principled BSDF and textures under RIS or ReSTIR
 # (bench.py's make_renderer)
-_RIS_PATHS = ("stress14", "headline", "restir", "gltf")
+_RIS_PATHS = ("stress14", "headline", "restir", "gltf", "cli")
 ASPECT = 16 / 9
 # the gltf path's alpha (MASK) materials, generate_stress_scene's large
 # occluders: m_brick and m_brick2 (the four walls), m_column (the 12
 # columns) and m_table (the 15 tables, boxes)
 GLTF_CUTOUTS = (2, 3, 4, 17)
+# the cli path's flags, after the scene file
+CLI_FLAGS = ("--strategy=restir", "--denoise", "--w=1920", "--h=1080",
+             "--bounces=4", "--samples=4", "--spp-per-frame=2")
+
+
+def cli_argv(scene_file: str, folder: str) -> list:
+    """The cli path's arguments to app/cli.py: ``scene_file``, CLI_FLAGS,
+    and the PNG, HDR and checkpoint it writes into ``folder`` (cli.png,
+    cli.hdr, cli.npz)."""
+    out = os.path.join(folder, "cli")
+    return [scene_file, *CLI_FLAGS, f"--out={out}.png", f"--hdr-out={out}.hdr",
+            f"--checkpoint={out}.npz"]
 
 
 def write_gltf_scene(folder: str) -> str:
@@ -96,7 +119,7 @@ def load(path: str, device=None):
     """(scene, camera, bvh, seconds) of a path on ``device`` (default: the
     GPU); ``seconds`` holds the host set-up times, {"scene": building the
     scene, "bvh": building the BVH and moving its tables to the device}; on
-    the gltf path {"write": generating and writing the .glb, and
+    the gltf and cli paths {"write": generating and writing the .glb, and
     load_scene_file's stages: "parse", "images", "atlas", "bvh", "scene"
     and "total"}."""
     from .accel.build import build_bvh
@@ -111,7 +134,7 @@ def load(path: str, device=None):
         raise ValueError(f"unknown path {path!r}; the paths are {PATHS}")
     device = resolve_device(device)
     t0 = time.perf_counter()
-    if path == "gltf":
+    if path in ("gltf", "cli"):
         from .assets.loader import load_scene_file
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -151,7 +174,10 @@ def slice_options(path: str):
     make_renderer, i.e. the defaults with RIS (4 light + 1 BSDF candidate,
     proxy target, 128-ray light tiles); so does the gltf path. The ReSTIR
     path: the same with RESTIR_DI and the default ReSTIRDISettings. All
-    these with 4 bounces, one sample per frame and ambient NONE. The envmap path: run_configs.py's
+    these with 4 bounces, one sample per frame and ambient NONE. The cli
+    path: what app/cli.py builds from CLI_FLAGS, the ReSTIR path's options
+    at 2 samples a frame in the default world (ambient UNIFORM). The
+    envmap path: run_configs.py's
     config 3, i.e. the Cornell path's options with ALIAS_TABLE envmap
     sampling and BSDF MIS, 6 bounces, one sample per frame and ambient
     ENVMAP."""
@@ -170,9 +196,12 @@ def slice_options(path: str):
     if path in _RIS_PATHS:
         opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RIS_BSDF_LIGHT)
         assert opts.ris_proxy_target and opts.ris_tile_light_candidates == 128
-    if path == "restir":
+    if path in ("restir", "cli"):
         opts = opts.replace(direct_light_sampling=LightSamplingStrategy.RESTIR_DI)
         assert not opts.restir_di_fused_spatiotemporal
+    if path == "cli":
+        return (opts, RenderSettings(nb_bounces=4, samples_per_frame=2),
+                WorldSettings())
     if path == "envmap":
         opts = opts.replace(envmap_sampling=EnvmapSamplingStrategy.ALIAS_TABLE,
                             envmap_bsdf_mis=True, max_bounces_static=6)

@@ -1,7 +1,7 @@
 """Where one frame's time goes on the card, for one of the paths of
 paths.py (the paths chip_smoke.py drives).
 
-    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline|restir|envmap|gltf]
+    python -m hiprt_pt_tpu_torch.profile_frame [stress|cornell|stress14|headline|restir|envmap|gltf|cli]
 
 Builds the path's scene (paths.load), renders one warm-up frame at
 1920x1080, then one frame under ``torch.profiler`` (CPU and CUDA
@@ -10,11 +10,11 @@ device's self time (the sum over device kernels) and its busy share, the
 host's launch count, and the operators and kernels with the most device
 time (operators by the device time of the kernels they launch, then the
 kernels themselves). For the paths under RIS (stress14, headline, gltf,
-and restir past the camera vertex) it also times, with CUDA events, the
+and restir and cli past the camera vertex) it also times, with CUDA events, the
 parts of one RIS vertex wavefront on the camera pass's hits: the full
 ``ris_direct_lighting`` (on gltf with the alpha march), the dense emissive
-sweep and the winner's alpha-blind visibility ray; for the ReSTIR path
-(restir) also each pass of the camera vertex's reservoir pipeline in the
+sweep and the winner's alpha-blind visibility ray; for the ReSTIR paths
+(restir, cli) also each pass of the camera vertex's reservoir pipeline in the
 frame after the profiled one. Needs a GPU; exits non-zero without one.
 """
 
@@ -130,9 +130,9 @@ def main(path: str = "stress14") -> int:
             print(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms "
                   f"{e.self_device_time_total / device_us:6.1%} x{e.count:6d}  "
                   f"{e.key[:110]}")
-    if path in ("stress14", "headline", "restir", "gltf"):
+    if path in ("stress14", "headline", "restir", "gltf", "cli"):
         _ris_parts(scene, cam, bvh, opts, settings)
-    if path == "restir":
+    if path in ("restir", "cli"):
         _restir_parts(r)
     return 0
 

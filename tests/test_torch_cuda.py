@@ -896,3 +896,77 @@ def test_alpha_march_kinds_match_plain(gpu_gltf, kernel):
     assert calls[0] and not any(calls[1:]) and len(calls) >= 3
     assert torch.equal(occ_k, occ_p) and torch.equal(s_k, s_p)
     assert 0 < int(occ_k.sum()) < int(active.sum())
+
+
+def _denoiser_inputs(dev, h=180, w=320, seed=0):
+    """Seeded denoiser inputs on ``dev``: an HDR image with fireflies, its
+    albedo and unit normals, the variance of the mean and sample counts
+    (some below 2)."""
+    g = np.random.default_rng(seed)
+    color = g.gamma(2.0, 0.3, (h, w, 3)).astype(np.float32)
+    color[g.random((h, w)) < 0.02] *= 60.0
+    normal = g.normal(size=(h, w, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    arrays = {"color": color, "albedo": g.random((h, w, 3)).astype(np.float32),
+              "normal": normal,
+              "variance": (g.random((h, w)) * 0.05).astype(np.float32),
+              "spp_map": g.integers(1, 48, (h, w)).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("variance", [True, False], ids=["variance", "fixed-sigma"])
+def test_denoisers_on_the_card_match_the_cpu(variance):
+    """The à-trous filter (atol 1e-6 + rtol 1e-5) and the CNN with the
+    shipped weights in f32 (atol 1e-5 + rtol 1e-4) on the card against the
+    same functions on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    import importlib
+
+    dn = importlib.import_module("hiprt_pt_tpu_torch.render.denoise")
+    nn = importlib.import_module("hiprt_pt_tpu_torch.render.denoise_nn")
+    dev = torch.device("cuda:0")
+    x, c = _denoiser_inputs(dev), _denoiser_inputs("cpu")
+    maps = ("variance", "spp_map")
+    kw = {k: x[k] for k in maps} if variance else {}
+    kc = {k: c[k] for k in maps} if variance else {}
+    got = dn.atrous_denoise(x["color"], x["albedo"], x["normal"], **kw)
+    want = dn.atrous_denoise(c["color"], c["albedo"], c["normal"], **kc)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=1e-5)
+    out = nn.apply(nn.load_params(device=dev), x["color"], got, x["albedo"],
+                   x["normal"], *(x[k] for k in maps))
+    ref = nn.apply(nn.load_params(device="cpu"), c["color"], want, c["albedo"],
+                   c["normal"], *(c[k] for k in maps))
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-4)
+
+
+def test_cli_main_on_the_card(tmp_path):
+    """python -m hiprt_pt_tpu_torch.app.cli without --cpu renders on the
+    card through its kernel (the Cornell box: trace_meganode) and writes
+    the HDR that --cpu writes, under the render gate; --resume continues
+    a checkpoint written on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.app.cli import main
+    from hiprt_pt_tpu_torch.assets.image_io import read_hdr
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    glb = tp.write_cornell_glb(str(tmp_path / "c.glb"), 2.0)
+    common = [glb, "--w=128", "--h=64", "--bounces=2", "--spp-per-frame=1",
+              "--denoise", "--strategy=restir"]
+    ct.reset_launch_counts()
+    stats = {}
+    assert main(common + ["--samples=2", f"--out={tmp_path}/g.png",
+                          f"--hdr-out={tmp_path}/g.hdr",
+                          f"--checkpoint={tmp_path}/g"], stats) == 0
+    assert ct.launch_counts["trace_meganode"] > 0 and stats["samples"] == 2
+    launches = dict(ct.launch_counts)
+    assert main(common + ["--samples=2", "--cpu", f"--out={tmp_path}/c.png",
+                          f"--hdr-out={tmp_path}/c.hdr"]) == 0
+    assert ct.launch_counts == launches
+    got, want = read_hdr(f"{tmp_path}/g.hdr"), read_hdr(f"{tmp_path}/c.hdr")
+    close = np.all(np.abs(got - want) <= 1e-3 + 1e-3 * np.abs(want), axis=-1)
+    assert close.mean() >= 0.98
+    assert main(common + ["--samples=3", f"--resume={tmp_path}/g.npz",
+                          f"--out={tmp_path}/r.png"], stats) == 0
+    assert stats["samples"] == 3

@@ -102,3 +102,19 @@ def incoherent_rays_np(n: int, seed: int):
 
 def prim_agreement(a, b) -> float:
     return float(np.mean(np.asarray(a) == np.asarray(b)))
+
+
+def write_cornell_glb(path: str, aspect: float) -> str:
+    """The procedural Cornell box (35,852 triangles, its lights and spheres)
+    written as a .glb at ``path`` with its camera; both packages' loaders
+    read it. Returns ``path``."""
+    from hiprt_pt_tpu_torch.assets.gltf import ParsedScene
+    from hiprt_pt_tpu_torch.assets.gltf_testscene import write_glb
+    from hiprt_pt_tpu_torch.core.camera import camera_from_lookat
+
+    v, f, m, rows, cam = cornell_spheres_arrays(aspect)
+    write_glb(path, ParsedScene(
+        vertices=v, triangles=f, normals=None, uvs=None, material_ids=m,
+        material_rows=[dict(r) for r in rows],
+        camera=camera_from_lookat(**cam, device="cpu"), images=[]))
+    return path
