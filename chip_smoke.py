@@ -107,6 +107,22 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 --checkpoint, then --resume to 4, against e's state leaf by
                 leaf (bit-identical, or the image gate and the leaves that
                 differ).
+  7b. viewer  — the ninth path, the system's second documented entry point
+                (README.md: ViewerServer(Renderer(scene, cam, ...)).serve()
+                on load_scene_file(aspect=16/9)) on the gltf path's .glb
+                at 1920x1080 with the default options and settings (MIS,
+                the principled BSDF, 8 bounces): first the Precompiler on
+                the six permutations, cold (a fresh build directory) and
+                warm; then, with the launch counts reset just before serve
+                and read after stop: the render loop's quiet frames, the
+                page, the nine views and /stats over HTTP on a free port
+                (frame times while they are served), the served beauty
+                image against ldr_image() of the same state, the panels,
+                /perf?passes=1, the camera controls, settings, material and
+                option edits, the presets fastest (RIS at 960x536) and
+                high_quality (ReSTIR DI), whose renderers keep every edit,
+                /bake and /animate polled to done, stop() ending both
+                threads; trace_coherent and trace_incoherent must launch.
   8. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
                 r5probe2.py), a path with no frame: its entry point main()
                 at the TPU probe's shapes with the launch counts reset just
@@ -119,6 +135,15 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 for both kernels the earlier version's time beside it;
                 dg_probe_kernel also on a table past the shared-memory
                 size (its L2 kernel).
+  9. bake     — the LUT baker and the sheen LTC fit, a path with no frame:
+                bake_all into a temporary directory on the card (the seven
+                tables at its sizes, each timed), each bake on the card
+                against the CPU at res 4 and 256 samples, the five shipped
+                tables against the fresh ones (within 0.02, beside the JAX
+                package's own gap); run_fit at 32,768 paths, 200 steps
+                over the 32x32 cells against the shipped table within
+                twice the JAX package's seed-to-seed spread, fit_poly of
+                it, the SGGX self-test (every |e| < 0.02).
 The lines before the last hold one row per (kernel, ray kind) and the
 kernels' JSON summary (each kernel's time on the 1080p rays it serves on
 its path, or on its probe's reference configuration, its plain version's,
@@ -289,6 +314,46 @@ CLI_PARITY = (256, 144, 2)
 ATROUS_TOL, CNN_TOL = (1e-6, 1e-5), (1e-5, 1e-4)
 # the profiler's names of a kernel launch from the host
 LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+# the viewer path: frames its loop renders before the first request, and
+# the edits it makes before the preset switches (index, field, value)
+VIEWER_QUIET_FRAMES = 3
+VIEWER_EDITS = ((2, "roughness", 0.77), (1, "roughness", 0.55))
+# the bake phase: the bakes at bake_all's sizes; the card's run at
+# BAKE_SMALL (res, samples) against the CPU's: every cell within
+# BAKE_CELL_TOL but at most 1 in BAKE_FLIP_SHARE of a table's cells, each
+# within BAKE_FLIP_TOL (one lane of 256 whose lobe choice rounds the other
+# way; tests/test_torch_bake.py holds the CPU against the JAX package so);
+# against the shipped table, BAKE_SHIPPED_TOL (tests/test_baker.py's)
+BAKE_SMALL = (4, 256)
+BAKE_CELL_TOL, BAKE_FLIP_TOL, BAKE_FLIP_SHARE = 1e-5, 6e-3, 50
+BAKE_SHIPPED_TOL = 0.02
+# the bake's name in bake_all's result -> (bake function, shipped table or
+# None); and the JAX package's own fresh bake at bake_all's sizes against
+# each shipped table, max |diff| (JAX 0.9.0 on a CPU,
+# tests/torch_parity.py:jax_spread)
+BAKES = {"conductor": ("bake_ggx_conductor_ess", "data_ggx_conductor_ess_32"),
+         "glossy_dielectric": ("bake_ggx_glossy_dielectric_ess", None),
+         "glass": ("bake_ggx_glass_ess", "data_ggx_glass_ess_16"),
+         "glass_inv": ("bake_ggx_glass_inv_ess", "data_ggx_glass_inv_ess_16"),
+         "thin_glass": ("bake_ggx_thin_glass_ess", "data_ggx_thin_glass_ess_16"),
+         "glossy_base": ("bake_glossy_base_ess", "data_glossy_base_ess_16"),
+         "fresnel": ("bake_ggx_fresnel_ess", None)}
+JAX_SHIPPED_GAP = {"data_ggx_conductor_ess_32": 0.0038196444511413574,
+                   "data_ggx_glass_ess_16": 0.0006085038185119629,
+                   "data_ggx_glass_inv_ess_16": 0.0012451410293579102,
+                   "data_ggx_thin_glass_ess_16": 2.2649765014648438e-06,
+                   "data_glossy_base_ess_16": 0.006270170211791992}
+# the sheen fit at full size, and its gate: per channel (Ai, Bi, R), the max
+# and median |fit - shipped| over the cells with R >= SHEEN_R_MIN within
+# twice the spread between two JAX seeds (1234 and 99991) at the same path
+# count over the whole table (tests/torch_parity.py:jax_spread, JAX 0.9.0
+# on a CPU)
+SHEEN_FIT = {"n_paths": 32768, "steps": 200, "seed": 1234}
+SHEEN_R_MIN = 0.01
+SHEEN_JAX_SPREAD = {"Ai": (0.06952342391014099, 0.005293548107147217),
+                    "Bi": (0.1494530886411667, 0.009054824709892273),
+                    "R": (0.01104736328125, 0.001800537109375)}
+SGGX_SELFTEST_TOL = 0.02
 
 
 def log(*a):
@@ -1866,6 +1931,365 @@ def phase_probes(dev):
     return launches, errs, rows
 
 
+def _fetch(port, path, timeout=600):
+    """(the body of GET path from the viewer on 127.0.0.1:port, seconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                  timeout=timeout).read()
+    return body, time.perf_counter() - t0
+
+
+def _poll(port, path, limit_s=600):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        st = json.loads(_fetch(port, path)[0])
+        if st["state"] != "running":
+            if st["state"] != "done":
+                raise AssertionError(f"{path}: {st}")
+            return st
+        time.sleep(0.2)
+    raise AssertionError(f"{path} still running after {limit_s} s")
+
+
+def _frames(r, after=0) -> list:
+    """The frame_ms values of renderer r from the after-th on."""
+    return r.metrics.values("frame_ms")[after:]
+
+
+def _wait_frames(r, n, limit_s=300):
+    t0 = time.perf_counter()
+    while len(_frames(r)) < n:
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"the viewer's loop rendered {len(_frames(r))} "
+                                 f"frames in {limit_s} s, not {n}")
+        time.sleep(0.05)
+
+
+def _wait_samples(r, n, limit_s=300):
+    t0 = time.perf_counter()
+    while r.state.sample_count < n:
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"the viewer's loop rendered "
+                                 f"{r.state.sample_count} samples in "
+                                 f"{limit_s} s, not {n}")
+        time.sleep(0.05)
+
+
+def phase_precompile(r):
+    """Precompiler(max_workers=2).warm(r) on the six permutations, first
+    with the build directory at a fresh temporary directory (a cold nvcc
+    build), then again (warm). Returns the directory (left in force, so
+    that the viewer's frames run the libraries built there) and the
+    seconds of both."""
+    import tempfile
+
+    from hiprt_pt_tpu_torch.utils.precompile import (Precompiler,
+                                                     enable_persistent_cache)
+
+    cache = enable_persistent_cache(tempfile.mkdtemp(prefix="hpt_build_"))
+    secs = {}
+    for run in ("cold", "warm"):
+        pc = Precompiler(max_workers=2)
+        t0 = time.perf_counter()
+        pc.warm(r)
+        pc.wait(timeout=900)
+        secs[run] = time.perf_counter() - t0
+        pc.shutdown()
+        log(f"[viewer precompile] {run}: compiled {pc.compiled}, failed "
+            f"{pc.failed} in {secs[run]:.2f} s (build directory {cache}: "
+            f"{sorted(os.listdir(cache))})")
+        if (pc.compiled, pc.failed) != (6, 0):
+            raise AssertionError(f"Precompiler {run}: compiled {pc.compiled}, "
+                                 f"failed {pc.failed}, not 6 and 0")
+    return cache, secs
+
+
+def phase_viewer(dev) -> dict:
+    """The viewer path: the README's viewer command through the port
+    (load_scene_file(aspect=16/9) of the gltf path's .glb, Renderer(scene,
+    cam, 1920, 1080) with the defaults, ViewerServer(...).serve() on
+    127.0.0.1, a free port), after the Precompiler's cold and warm
+    warm-ups. With the launch counts reset just before serve and read after
+    stop: quiet frames, then the page, the nine views and /stats (frames
+    rendered meanwhile: the busy ones), the served beauty image against
+    ldr_image() of the same state (the loop paused), the panels, /perf with
+    the passes, the camera controls, a settings, a material and an option
+    edit, the presets fastest and high_quality (the edits still in force
+    after each), /bake and /animate polled to done, stop() (both threads
+    end). Returns the launches by kernel."""
+    import shutil
+    import tempfile
+
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.app.viewer import VIEWS, ViewerServer
+    from hiprt_pt_tpu_torch.assets.image_io import decode_png
+    from hiprt_pt_tpu_torch.assets.loader import load_scene_file
+    from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy as LSS
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+    from hiprt_pt_tpu_torch.utils.precompile import enable_persistent_cache
+
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = paths.write_gltf_scene(tmp)
+        t0 = time.perf_counter()
+        scene, cam = load_scene_file(glb, aspect=16 / 9, device=dev)
+        r = Renderer(scene, cam, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        log(f"[viewer] load_scene_file + Renderer (its BVH "
+            f"{r.bvh_build_time:.3f} s): {time.perf_counter() - t0:.3f} s; "
+            f"options == RenderOptions(): "
+            f"{(r.options, r.settings, r.world) == paths.slice_options('viewer')}")
+        if (r.options, r.settings, r.world) != paths.slice_options("viewer"):
+            raise AssertionError("the viewer's renderer is not the defaults")
+        cache, pre = phase_precompile(r)
+        ct.reset_launch_counts()
+        srv = ViewerServer(r, host="127.0.0.1", port=0).serve(blocking=False)
+        port = srv._httpd.server_address[1]
+        t_serve = time.perf_counter()
+        try:
+            _wait_frames(r, VIEWER_QUIET_FRAMES)
+            quiet = _frames(r)
+            n0 = len(quiet)
+            secs = {}
+            page, secs["/"] = _fetch(port, "/")
+            if b"viewer" not in page:
+                raise AssertionError("the page does not name the viewer")
+            for view in VIEWS:
+                png, secs[view] = _fetch(port, f"/image?view={view}")
+                img = decode_png(png)
+                if img.shape != (HEIGHT, WIDTH, 3):
+                    raise AssertionError(f"/image?view={view}: {img.shape}")
+            stats = json.loads(_fetch(port, "/stats")[0])
+            busy = _frames(r, n0)
+            log(f"[viewer] frames: {n0} before any request, median "
+                f"{np.median(quiet):.1f} ms ({[round(x, 1) for x in quiet]}); "
+                f"{len(busy)} while the page, the nine views and /stats were "
+                f"served, median "
+                f"{np.median(busy) if busy else float('nan'):.1f} ms; /stats "
+                f"{stats}")
+            log(f"[viewer] seconds a request at {WIDTH}x{HEIGHT}: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in secs.items()))
+            # the served beauty image is the renderer's display image of the
+            # same state: the loop paused, the state read under the lock
+            srv._busy.set()
+            with srv._step_lock:
+                state = r.state
+                want = (np.clip(r.ldr_image(), 0, 1) * 255).astype(np.uint8)
+            got = decode_png(_fetch(port, "/image?view=beauty")[0])
+            same_state = r.state is state
+            srv._busy.clear()
+            log(f"[viewer] served beauty vs ldr_image() of the state at "
+                f"{state.sample_count} samples: equal "
+                f"{np.array_equal(got, want)}, state unchanged {same_state}")
+            if not (same_state and np.array_equal(got, want)):
+                raise AssertionError("the served beauty image is not the "
+                                     "renderer's display image")
+            panels = {}
+            for path in ("/settings", "/materials", "/options", "/kernels",
+                         "/bias", "/perf?passes=1"):
+                body, dt = _fetch(port, path)
+                panels[path] = json.loads(body)
+                log(f"[viewer] {path}: {dt:.3f} s, {len(body)} bytes")
+            if set(panels["/kernels"]["kernels"]) != set(paths.ROUTES["viewer"]):
+                raise AssertionError(f"/kernels: {panels['/kernels']}")
+            log(f"[viewer] /kernels: {panels['/kernels']['kernels']}; /perf "
+                f"passes: {panels['/perf?passes=1']['passes_ms']}")
+            (i0, key0, v0), (i1, key1, v1) = VIEWER_EDITS
+            for q in ("rotate&yaw=0.1&pitch=0.05", "pan&dx=0.1&dy=-0.1",
+                      "walk&dx=0&dy=0&dz=0.2", "orbit&value=10",
+                      "zoom&value=0.3", "set&key=rr_min_depth&value=5",
+                      f"material&index={i0}&key={key0}&value={v0}",
+                      "option&key=do_thin_film&value=0",
+                      "preset&value=fastest",
+                      f"material&index={i1}&key={key1}&value={v1}",
+                      "option&key=do_dispersion&value=0"):
+                body, dt = _fetch(port, f"/control?cmd={q}")
+                if not json.loads(body)["ok"]:
+                    raise AssertionError(f"/control?cmd={q}: {body}")
+                log(f"[viewer] /control?cmd={q}: {dt:.3f} s")
+                if q == "preset&value=fastest":
+                    half = srv.renderer
+                    _wait_frames(half, 1)
+                    log(f"[viewer] fastest: {half.width}x{half.height}, "
+                        f"{half.options.direct_light_sampling.name}, a frame "
+                        f"{_frames(half)[0]:.1f} ms")
+                    _edits_in_force(half, 1, LSS.RIS_BSDF_LIGHT)
+            _, dt = _fetch(port, "/control?cmd=preset&value=high_quality")
+            hq = srv.renderer
+            # the frame of the second sample starts after the first's time
+            # is recorded
+            _wait_samples(hq, 2)
+            log(f"[viewer] high_quality in {dt:.3f} s: {hq.width}x"
+                f"{hq.height}, {hq.options.direct_light_sampling.name}, a "
+                f"frame {_frames(hq)[-1]:.1f} ms")
+            if hq is not r:
+                raise AssertionError("high_quality is not the base renderer")
+            _edits_in_force(hq, 2, LSS.RESTIR_DI)
+            t0 = time.perf_counter()
+            _fetch(port, "/bake?what=conductor&res=16&samples=2048")
+            bake = _poll(port, "/bake")
+            bake_s = time.perf_counter() - t0
+            if bake["shape"] != [16, 16]:
+                raise AssertionError(f"/bake: {bake}")
+            out = os.path.join(tmp, "anim")
+            t0 = time.perf_counter()
+            _fetch(port, f"/animate?frames=2&spp=1&out={out}")
+            anim = _poll(port, "/animate")
+            anim_s = time.perf_counter() - t0
+            with open(anim["paths"][-1], "rb") as f:
+                frame = decode_png(f.read())
+            if anim["frames"] != 2 or frame.shape != (HEIGHT, WIDTH, 3):
+                raise AssertionError(f"/animate: {anim}, {frame.shape}")
+            log(f"[viewer] /bake conductor 16x16 x 2048: {bake_s:.2f} s "
+                f"({bake['seconds']:.3f} s in the job); /animate 2 frames of "
+                f"1 spp at {hq.width}x{hq.height}: {anim_s:.2f} s "
+                f"({anim['seconds']:.2f} s in the job)")
+        finally:
+            srv.stop()
+            enable_persistent_cache()
+            shutil.rmtree(cache, ignore_errors=True)
+        alive = (srv._render_thread.is_alive(), srv._serve_thread.is_alive())
+        launches = dict(ct.launch_counts)
+        frames = sum(len(_frames(x)) for x in
+                     [r, *srv._scaled_renderers.values()])
+        log(f"[viewer] {time.perf_counter() - t_serve:.1f} s served, "
+            f"{frames} frames (metrics keep the last 64 a renderer), "
+            f"launches {launches}; stop(): render and server threads alive "
+            f"{alive}; precompile cold {pre['cold']:.2f} s, warm "
+            f"{pre['warm']:.2f} s")
+        if any(alive):
+            raise AssertionError("stop() left a thread running")
+        for k, v in launches.items():
+            if (v > 0) != (k in paths.ROUTES["viewer"]):
+                raise AssertionError(f"the viewer path launched {k} {v} times")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _edits_in_force(r, n_edits, strategy):
+    """The first n_edits of VIEWER_EDITS, the option edits made with them
+    (do_thin_film off, then do_dispersion off) and rr_min_depth 5 are in
+    force on r, under the preset's strategy."""
+    rough = r.scene.materials.roughness.cpu()
+    ok = (r.options.direct_light_sampling == strategy
+          and not r.options.do_thin_film
+          and r.options.do_dispersion == (n_edits < 2)
+          and r.settings.rr_min_depth == 5
+          and all(abs(float(rough[i]) - v) < 1e-6
+                  for i, _key, v in VIEWER_EDITS[:n_edits]))
+    log(f"[viewer] edits in force after the switch to "
+        f"{r.width}x{r.height}: {ok}")
+    if not ok:
+        raise AssertionError("a preset switch dropped an edit")
+
+
+def _sheen_diff(a, b) -> dict:
+    """Per channel of two sheen tables, (max, median) |a - b| over the
+    cells where both have R >= SHEEN_R_MIN."""
+    cells = (a[..., 2] >= SHEEN_R_MIN) & (b[..., 2] >= SHEEN_R_MIN)
+    return {name: (float(np.abs(a[..., ch] - b[..., ch])[cells].max()),
+                   float(np.median(np.abs(a[..., ch] - b[..., ch])[cells])))
+            for ch, name in enumerate(("Ai", "Bi", "R"))}
+
+
+def phase_bake(dev):
+    """The bake phase, a path with no frame: bake_all into a temporary
+    directory on the card, each of the seven bakes timed; each held against
+    the port's CPU run of the same function at BAKE_SMALL (the card's run
+    at that size) and, where one is shipped, against the shipped table;
+    the sheen fit at full size against the shipped table, fit_poly of it,
+    and the SGGX self-test. Returns the seconds of its parts."""
+    import tempfile
+
+    from hiprt_pt_tpu_torch.bake import baker, sheen_ltc_fit as sf
+
+    shipped_dir = os.path.dirname(baker.__file__)
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        real = {fn: getattr(baker, fn) for fn, _ in BAKES.values()}
+
+        def timed(fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = real[fn](*a, **kw)
+                secs[fn] = time.perf_counter() - t0
+                return out
+            return run
+
+        try:
+            for fn in real:
+                setattr(baker, fn, timed(fn))
+            t0 = time.perf_counter()
+            tables = baker.bake_all(out_dir=tmp, device=dev)
+            secs["bake_all"] = time.perf_counter() - t0
+        finally:
+            for fn, f in real.items():
+                setattr(baker, fn, f)
+        log(f"[bake] bake_all into {os.path.basename(tmp)}/ on the card: "
+            f"{secs['bake_all']:.2f} s, files {sorted(os.listdir(tmp))}")
+        res, n = BAKE_SMALL
+        t0 = time.perf_counter()
+        for name, (fn, shipped) in BAKES.items():
+            card = getattr(baker, fn)(res=res, n_samples=n, device=dev)
+            cpu = getattr(baker, fn)(res=res, n_samples=n, device="cpu")
+            diff = np.abs(card - cpu)
+            flips = int((diff > BAKE_CELL_TOL).sum())
+            line = (f"[bake] {name}: {tables[name].shape} in {secs[fn]:.2f} s; "
+                    f"card vs CPU at res {res}, {n} samples: max |diff| "
+                    f"{diff.max():.3e}, median {np.median(diff):.3e}, "
+                    f"{flips} of {diff.size} cells past {BAKE_CELL_TOL}")
+            if shipped:
+                ref = np.load(os.path.join(shipped_dir, shipped + ".npy"))
+                gap = float(np.abs(tables[name] - ref).max())
+                line += (f"; vs {shipped}.npy max |diff| {gap:.5f} (the JAX "
+                         f"package's own fresh bake: "
+                         f"{JAX_SHIPPED_GAP[shipped]:.5f})")
+                if not gap <= BAKE_SHIPPED_TOL:
+                    raise AssertionError(f"{name} is {gap} from {shipped}")
+            log(line)
+            if not (np.isfinite(tables[name]).all()
+                    and diff.max() <= BAKE_FLIP_TOL
+                    and flips <= diff.size // BAKE_FLIP_SHARE):
+                raise AssertionError(f"{name}: the card's bake disagrees with "
+                                     f"the CPU's")
+        secs["card vs CPU"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        table = sf.run_fit(device=dev, verbose=False, **SHEEN_FIT)
+        secs["sheen fit"] = time.perf_counter() - t0
+        np.save(os.path.join(tmp, "sheen_ltc.npy"), table)
+        shipped = np.load(sf.OUT_PATH)
+        d = _sheen_diff(table, shipped)
+        log(f"[bake] sheen fit {SHEEN_FIT} over {sf.RES}x{sf.RES} cells: "
+            f"{secs['sheen fit']:.2f} s; vs the shipped table (cells with R >= "
+            f"{SHEEN_R_MIN}), max / median |diff|: " + ", ".join(
+                f"{k} {m:.4f} / {med:.4f} (gate {2 * SHEEN_JAX_SPREAD[k][0]:.4f}"
+                f" / {2 * SHEEN_JAX_SPREAD[k][1]:.4f})"
+                for k, (m, med) in d.items()))
+        for k, (m, med) in d.items():
+            lim_max, lim_med = SHEEN_JAX_SPREAD[k]
+            if not (np.isfinite(table).all() and m <= 2 * lim_max
+                    and med <= 2 * lim_med):
+                raise AssertionError(f"sheen fit {k}: max {m}, median {med}, "
+                                     f"past twice JAX's seed-to-seed spread")
+        poly = sf.fit_poly(table)
+        log(f"[bake] fit_poly of the fitted table (residuals above): max "
+            f"|coeff - shipped poly's| "
+            f"{np.abs(poly - np.load(sf.POLY_PATH)).max():.4f}")
+        t0 = time.perf_counter()
+        errs = sf.selftest_sggx_sampler(device=dev)
+        secs["selftest"] = time.perf_counter() - t0
+        log(f"[bake] SGGX self-test on the card (normalization + 3 moments): "
+            f"{errs}, every |e| < {SGGX_SELFTEST_TOL}: "
+            f"{all(abs(e) < SGGX_SELFTEST_TOL for e in errs)}")
+        if not all(abs(e) < SGGX_SELFTEST_TOL for e in errs):
+            raise AssertionError(f"SGGX self-test: {errs}")
+    torch.cuda.empty_cache()
+    return secs
+
+
 def main() -> int:
     from hiprt_pt_tpu_torch import paths
 
@@ -1911,11 +2335,20 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"[cli] {time.perf_counter() - t_cli:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s since the start")
+    t_viewer = time.perf_counter()
+    for k, v in phase_viewer(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[viewer] {time.perf_counter() - t_viewer:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s since the start")
     t_probes = time.perf_counter()
     p_launches, p_errs, p_rows = phase_probes(dev)
     log(f"[probes] {time.perf_counter() - t_probes:.1f} s")
     launches.update(p_launches)
     errs.update(p_errs)
+    t_bake = time.perf_counter()
+    secs = phase_bake(dev)
+    log(f"[bake] {time.perf_counter() - t_bake:.1f} s: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()))
 
     # one row per (path, kernel, ray kind): the kind's mode, launches per
     # frame, and what those launches cost above the bound

@@ -1,10 +1,11 @@
-"""The headless application shell, mirroring ``hiprt_pt_tpu.app``: the
-command-line renderer (``python -m hiprt_pt_tpu_torch.app.cli``) and
-auto-named screenshots. The viewer is not ported yet."""
+"""The application shell, mirroring ``hiprt_pt_tpu.app``: the command-line
+renderer (``python -m hiprt_pt_tpu_torch.app.cli``), the browser viewer
+(``ViewerServer``) and auto-named screenshots."""
 
 from .screenshot import auto_filename, screenshot
+from .viewer import ViewerServer
 
-__all__ = ["cli_main", "auto_filename", "screenshot"]
+__all__ = ["cli_main", "auto_filename", "screenshot", "ViewerServer"]
 
 
 def __getattr__(name):

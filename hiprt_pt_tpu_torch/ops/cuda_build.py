@@ -22,6 +22,12 @@ registers, spills and shared memory into ``build_log``.
 ``load_source`` builds and loads one more source the same way; a script
 uses it for a kernel that is not part of the package (an earlier version
 kept for a side-by-side timing).
+
+The package's libraries are loaded once for each build directory
+(``native_build.BUILD_DIR``, which ``utils/precompile.py:
+enable_persistent_cache`` may point elsewhere), under one lock that covers
+the build and the load: threads that ask at once (the render loop, the
+warm-up jobs of utils/precompile.py) wait for one build.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from ..utils import native_build
 from ..utils.native_build import build_shared
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -85,6 +92,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
+# build directory -> {source name: CDLL}
 _libs: dict = {}
 build_log = ""
 
@@ -125,20 +133,22 @@ def load_source(path: str, extra_flags: list,
 
 
 def load_libraries() -> dict:
-    """Build (where needed) and load every source's library, compiling all
-    of them at once, with the C signatures declared. Returns {source name:
-    CDLL}. Raises on failure."""
+    """Build (where needed) and load every source's library in the build
+    directory, compiling all of them at once, with the C signatures
+    declared. Returns {source name: CDLL}. Raises on failure, and a later
+    call tries again."""
     global build_log
     with _lock:
-        if not _libs:
+        build_dir = native_build.BUILD_DIR
+        if build_dir not in _libs:
             nvcc = _nvcc()
             with ThreadPoolExecutor(len(SOURCES)) as pool:
                 built = dict(zip(SOURCES, pool.map(
                     lambda name: _build(nvcc, name), SOURCES)))
             build_log = "\n".join(log for _path, log in built.values())
-            for name, (path, _log) in built.items():
-                _libs[name] = _load(path, SIGNATURES[name])
-        return _libs
+            _libs[build_dir] = {name: _load(path, SIGNATURES[name])
+                                for name, (path, _log) in built.items()}
+        return _libs[build_dir]
 
 
 def kernel_info(fn, *flags) -> tuple:

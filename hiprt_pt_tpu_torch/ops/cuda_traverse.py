@@ -69,6 +69,24 @@ def source_of(kernel: str) -> str:
     return _KERNELS[kernel][0]
 
 
+def routed_kernel_info(bvh) -> dict:
+    """{kernel: {"closest" | "any_hit": {registers, local_bytes,
+    shared_bytes, blocks_per_sm}}} of the kernels that ``bvh``'s rays route
+    to (ops/routing.py), from their libraries' *_info functions; builds and
+    loads the libraries where needed. Raises where a build or a query
+    fails."""
+    from .routing import route
+
+    libs = cuda_build.load_libraries()
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+    out = {}
+    for k in sorted({route(bvh, True), route(bvh, False)}):
+        fn = getattr(libs[source_of(k)], f"hpt_{k}_info")
+        out[k] = {mode: dict(zip(keys, cuda_build.kernel_info(fn, flag)))
+                  for mode, flag in (("closest", 0), ("any_hit", 1))}
+    return out
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0

@@ -53,6 +53,20 @@ def sample_cosine_hemisphere(n, u1, u2):
     return d, pdf
 
 
+def sample_disk(u1, u2):
+    """Uniform point on the unit disk (polar warp). Returns (x, y)."""
+    r = torch.sqrt(u1)
+    phi = TWO_PI * u2
+    return r * torch.cos(phi), r * torch.sin(phi)
+
+
+def sample_uniform_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def sample_triangle(v0, e1, e2, u1, u2):
     """Uniform point on a triangle (sqrt warp). Returns (point, unnormalized
     geometric normal)."""
@@ -63,8 +77,37 @@ def sample_triangle(v0, e1, e2, u1, u2):
     return p, torch.linalg.cross(e1, e2)
 
 
+_MASK = 0xFFFFFFFF
+
+
+def radical_inverse_base2(bits):
+    """Van der Corput radical inverse for Hammersley points: the 32 bits of
+    ``bits`` reversed, as a float in [0, 1). torch has no uint32 shifts on
+    every device, so the word is held in int64 and masked to 32 bits."""
+    b = bits.to(torch.int64) & _MASK
+    b = ((b << 16) | (b >> 16)) & _MASK
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F),
+                        (8, 0x00FF00FF)):
+        b = ((b & mask) << shift) | ((b >> shift) & mask)
+    return b.to(torch.float32) * 2.3283064365386963e-10
+
+
+def hammersley_2d(i, n):
+    return i.to(torch.float32) / n, radical_inverse_base2(i)
+
+
 def balance_heuristic(pdf_a, pdf_b):
     return pdf_a / (pdf_a + pdf_b).clamp_min(1e-12)
+
+
+def power_heuristic(pdf_a, pdf_b):
+    a2 = pdf_a * pdf_a
+    return a2 / (a2 + pdf_b * pdf_b).clamp_min(1e-12)
+
+
+def reflect(d, n):
+    """Mirror reflect direction d (pointing away from the surface) about n."""
+    return 2.0 * (d * n).sum(dim=-1, keepdim=True) * n - d
 
 
 def sphere_to_equirect_uv(d):

@@ -1,4 +1,4 @@
-"""The eight paths that chip_smoke.py drives and profile_frame.py profiles:
+"""The nine paths that chip_smoke.py drives and profile_frame.py profiles:
 each path's scene, camera, BVH and render options, at the 16:9 aspect of a
 1920x1080 frame; for the cli path also its command line.
 
@@ -55,6 +55,14 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   bench.py's headline, not 8; 1920x1080, as every path, not 1280x720.
   ReSTIR's visibility rays take the alpha march; the world keeps the
   CLI's default uniform ambient; trace_coherent and trace_incoherent.
+- ``viewer``: the system's second documented entry point (README.md:
+  ``ViewerServer(Renderer(scene, cam, 1280, 720), port=8000).serve()`` on
+  ``load_scene_file(..., aspect=16/9)``) through the port's app/viewer.py
+  on the gltf path's scene file: the default RenderOptions (the principled
+  BSDF, MIS) and RenderSettings (8 bounces) in the default world (uniform
+  ambient), at 1920x1080 (the README has 1280x720); its presets switch to
+  RIS at half the grid and to ReSTIR DI. trace_coherent and
+  trace_incoherent.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ import torch
 from .core.device import resolve_device
 
 PATHS = ("stress", "cornell", "stress14", "headline", "restir", "envmap",
-         "gltf", "cli")
+         "gltf", "cli", "viewer")
 # the kernels that serve each path's (coherent, incoherent) rays
 ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "cornell": ("trace_meganode", "trace_meganode"),
@@ -77,7 +85,8 @@ ROUTES = {"stress": ("trace_coherent", "trace_incoherent"),
           "restir": ("trace_coherent", "trace_incoherent"),
           "envmap": ("trace_meganode", "trace_meganode"),
           "gltf": ("trace_coherent", "trace_incoherent"),
-          "cli": ("trace_coherent", "trace_incoherent")}
+          "cli": ("trace_coherent", "trace_incoherent"),
+          "viewer": ("trace_coherent", "trace_incoherent")}
 # the paths with the principled BSDF and textures under RIS or ReSTIR
 # (bench.py's make_renderer)
 _RIS_PATHS = ("stress14", "headline", "restir", "gltf", "cli")
@@ -119,9 +128,9 @@ def load(path: str, device=None):
     """(scene, camera, bvh, seconds) of a path on ``device`` (default: the
     GPU); ``seconds`` holds the host set-up times, {"scene": building the
     scene, "bvh": building the BVH and moving its tables to the device}; on
-    the gltf and cli paths {"write": generating and writing the .glb, and
-    load_scene_file's stages: "parse", "images", "atlas", "bvh", "scene"
-    and "total"}."""
+    the gltf, cli and viewer paths {"write": generating and writing the
+    .glb, and load_scene_file's stages: "parse", "images", "atlas", "bvh",
+    "scene" and "total"}."""
     from .accel.build import build_bvh
     from .assets.cornell import cornell_spheres_arrays
     from .assets.envmap import build_envmap, make_test_envmap
@@ -134,7 +143,7 @@ def load(path: str, device=None):
         raise ValueError(f"unknown path {path!r}; the paths are {PATHS}")
     device = resolve_device(device)
     t0 = time.perf_counter()
-    if path in ("gltf", "cli"):
+    if path in ("gltf", "cli", "viewer"):
         from .assets.loader import load_scene_file
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -180,11 +189,14 @@ def slice_options(path: str):
     envmap path: run_configs.py's
     config 3, i.e. the Cornell path's options with ALIAS_TABLE envmap
     sampling and BSDF MIS, 6 bounces, one sample per frame and ambient
-    ENVMAP."""
+    ENVMAP. The viewer path: the defaults of all three, as the README's
+    viewer command builds its Renderer."""
     from .core.settings import (AmbientLightType, BSDFOverride,
                                 EnvmapSamplingStrategy, LightSamplingStrategy,
                                 RenderOptions, RenderSettings, WorldSettings)
 
+    if path == "viewer":
+        return RenderOptions(), RenderSettings(), WorldSettings()
     opts = RenderOptions(direct_light_sampling=LightSamplingStrategy.MIS,
                          max_bounces_static=4)
     if path == "stress":

@@ -367,16 +367,9 @@ class Renderer:
         out = {"options": str(self.options)}
         if self.device.type != "cuda" or not self.options.use_pallas_traversal:
             return {"kernel": "plain walks", **out}
-        from ..ops import cuda_build, cuda_traverse
-        from ..ops.routing import route
+        from ..ops import cuda_traverse
 
-        libs = cuda_build.load_libraries()
-        keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
-        kernels = {}
-        for k in sorted({route(self.bvh, True), route(self.bvh, False)}):
-            fn = getattr(libs[cuda_traverse.source_of(k)], f"hpt_{k}_info")
-            kernels[k] = {mode: dict(zip(keys, cuda_build.kernel_info(fn, flag)))
-                          for mode, flag in (("closest", 0), ("any_hit", 1))}
+        kernels = cuda_traverse.routed_kernel_info(self.bvh)
         return {"kernel": "render_step", **out, "kernels": kernels,
                 "launch_counts": dict(cuda_traverse.launch_counts),
                 "peak_device_memory_bytes":

@@ -970,3 +970,80 @@ def test_cli_main_on_the_card(tmp_path):
     assert main(common + ["--samples=3", f"--resume={tmp_path}/g.npz",
                           f"--out={tmp_path}/r.png"], stats) == 0
     assert stats["samples"] == 3
+
+
+BAKES = ("bake_ggx_conductor_ess", "bake_ggx_glossy_dielectric_ess",
+         "bake_glossy_base_ess", "bake_ggx_fresnel_ess", "bake_ggx_glass_ess",
+         "bake_ggx_glass_inv_ess", "bake_ggx_thin_glass_ess")
+
+
+@pytest.mark.parametrize("name", BAKES)
+def test_bake_on_the_card_matches_the_cpu(name):
+    """Each bake at res 4 and 256 samples on the card and on the CPU, under
+    chip_smoke.py's gate: every cell within 1e-5, but at most 1 in 50 of a
+    table's cells, each within 6e-3 (one lane whose lobe choice rounds the
+    other way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    import chip_smoke as cs
+    from hiprt_pt_tpu_torch.bake import baker
+
+    card = getattr(baker, name)(res=4, n_samples=256)
+    cpu = getattr(baker, name)(res=4, n_samples=256, device="cpu")
+    diff = np.abs(card - cpu)
+    assert diff.max() <= cs.BAKE_FLIP_TOL
+    assert (diff > cs.BAKE_CELL_TOL).sum() <= diff.size // cs.BAKE_FLIP_SHARE
+
+
+def test_sheen_fit_row_on_the_card():
+    """One alpha row at 4,096 paths on the card against the CPU's (other
+    generators, so statistically: R within 4.5 sigma of the difference of
+    two binomial shares); the SGGX self-test on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.bake import sheen_ltc_fit as sf
+
+    n, alpha = 4096, 0.703125
+    rows = [sf.fit_alpha_row(torch.Generator(dev).manual_seed(1256), alpha, n,
+                             thickness=alpha)
+            for dev in (torch.device("cuda:0"), torch.device("cpu"))]
+    r_card, r_cpu = rows[0][2].cpu().numpy(), rows[1][2].numpy()
+    sigma = np.sqrt(2.0 * r_cpu * (1.0 - r_cpu) / n)
+    assert (np.abs(r_card - r_cpu) <= 4.5 * sigma + 1.0 / n).all()
+    assert np.isfinite(rows[0][0].cpu().numpy()).all()
+    assert all(abs(e) < 0.02 for e in sf.selftest_sggx_sampler())
+
+
+def test_viewer_views_on_the_card_match_the_cpu(tmp_path):
+    """The viewer on a renderer on the card: its frames launch the routed
+    kernel, and each of the nine views of the state it rendered equals the
+    view of the same state (through a checkpoint) on the CPU within 1 LSB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.app.viewer import VIEWS, ViewerServer
+    from hiprt_pt_tpu_torch.assets.image_io import decode_png
+    from hiprt_pt_tpu_torch.assets.loader import load_scene_file
+    from hiprt_pt_tpu_torch.core.state import init_render_state
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.render.checkpoint import (load_checkpoint,
+                                                      save_checkpoint)
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+
+    glb = tp.write_cornell_glb(str(tmp_path / "c.glb"), 2.0)
+    renderers = []
+    for dev in ("cuda", "cpu"):
+        scene, cam = load_scene_file(glb, aspect=2.0, device=dev)
+        renderers.append(Renderer(scene, cam, 64, 32))
+    card, cpu = renderers
+    ct.reset_launch_counts()
+    card.step(block=True)
+    card.step(block=True)
+    assert ct.launch_counts["trace_meganode"] > 0
+    save_checkpoint(str(tmp_path / "st"), card.state)
+    cpu.state = load_checkpoint(str(tmp_path / "st"),
+                                init_render_state(64, 32, device="cpu"))
+    for view in VIEWS:
+        got = decode_png(ViewerServer(card)._image_png(view)).astype(int)
+        want = decode_png(ViewerServer(cpu)._image_png(view)).astype(int)
+        assert got.shape == (32, 64, 3)
+        assert np.abs(got - want).max() <= 1, view

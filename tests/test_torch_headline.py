@@ -39,7 +39,7 @@ W, H = 64, 32
 
 def test_headline_is_a_path_with_the_bvh4_routes():
     assert paths.PATHS == ("stress", "cornell", "stress14", "headline", "restir",
-                           "envmap", "gltf", "cli")
+                           "envmap", "gltf", "cli", "viewer")
     assert set(paths.ROUTES) == set(paths.PATHS)
     assert paths.ROUTES["headline"] == ("trace_coherent", "trace_incoherent")
     with pytest.raises(ValueError, match="unknown path"):

@@ -436,7 +436,7 @@ def test_restir_path_is_bench_pys_row(both):
     headline's."""
     import chip_smoke
 
-    assert paths.PATHS[-4:] == ("restir", "envmap", "gltf", "cli")
+    assert paths.PATHS[-5:] == ("restir", "envmap", "gltf", "cli", "viewer")
     assert paths.ROUTES["restir"] == ("trace_coherent", "trace_incoherent")
     opts, settings, world = paths.slice_options("restir")
     hopts, hset, hworld = paths.slice_options("headline")

@@ -118,3 +118,79 @@ def write_cornell_glb(path: str, aspect: float) -> str:
         material_rows=[dict(r) for r in rows],
         camera=camera_from_lookat(**cam, device="cpu"), images=[]))
     return path
+
+
+# --- the JAX package's own spread, the yardstick of the port's bakes ---
+
+# the shipped tables that a fresh bake can be held against: name -> (the JAX
+# package's bake function, its keyword arguments at bake_all's sizes)
+SHIPPED_BAKES = {
+    "data_ggx_conductor_ess_32": ("bake_ggx_conductor_ess", {"res": 32}),
+    "data_ggx_glass_ess_16": ("bake_ggx_glass_ess", {"res": 16}),
+    "data_ggx_glass_inv_ess_16": ("bake_ggx_glass_inv_ess", {"res": 16}),
+    "data_ggx_thin_glass_ess_16": ("bake_ggx_thin_glass_ess", {"res": 16}),
+    "data_glossy_base_ess_16": ("bake_glossy_base_ess", {"res": 16}),
+}
+# the sheen table's cells whose fit is compared: the lobe carries energy
+SHEEN_R_MIN = 0.01
+
+
+def sheen_table_diff(a: np.ndarray, b: np.ndarray) -> dict:
+    """Per channel (Ai, Bi, R) of two (32, 32, 3) sheen tables, the max and
+    median |a - b| over the cells where both have R >= SHEEN_R_MIN."""
+    cells = (a[..., 2] >= SHEEN_R_MIN) & (b[..., 2] >= SHEEN_R_MIN)
+    out = {"cells": int(cells.sum())}
+    for ch, name in enumerate(("Ai", "Bi", "R")):
+        d = np.abs(a[..., ch] - b[..., ch])[cells]
+        out[name] = {"max": float(d.max()), "median": float(np.median(d))}
+    return out
+
+
+def jax_spread(seeds=(1234, 99991), n_paths: int = 32768) -> dict:
+    """The JAX package on this host's CPU: each shipped bake table baked
+    afresh at bake_all's sizes (max |fresh - shipped| and seconds), and the
+    sheen fit (run_fit) at ``n_paths`` under two seeds, compared with each
+    other and with the shipped table by sheen_table_diff."""
+    import os
+    import time
+
+    from hiprt_pt_tpu.bake import baker, sheen_ltc_fit
+
+    bake_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "hiprt_pt_tpu", "bake")
+    out = {"bakes": {}}
+    for name, (fn, kw) in SHIPPED_BAKES.items():
+        t0 = time.perf_counter()
+        fresh = getattr(baker, fn)(**kw)
+        shipped = np.load(os.path.join(bake_dir, name + ".npy"))
+        out["bakes"][name] = {
+            "max_abs_diff": float(np.abs(fresh - shipped).max()),
+            "seconds": time.perf_counter() - t0}
+        print(name, out["bakes"][name], flush=True)
+    shipped = np.load(sheen_ltc_fit.OUT_PATH)
+    tables = []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        tables.append(sheen_ltc_fit.run_fit(n_paths=n_paths, seed=seed,
+                                            verbose=False))
+        out[f"sheen_seed_{seed}_seconds"] = time.perf_counter() - t0
+        out[f"sheen_seed_{seed}_vs_shipped"] = sheen_table_diff(tables[-1],
+                                                                shipped)
+        print(seed, out[f"sheen_seed_{seed}_vs_shipped"], flush=True)
+    out["sheen_seed_to_seed"] = sheen_table_diff(tables[0], tables[1])
+    out["n_paths"], out["seeds"] = n_paths, list(seeds)
+    return out
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py [out.json]: the JAX
+    # package's fresh-vs-shipped bake gaps and the sheen fit's seed-to-seed
+    # spread (PERF.md cites its numbers)
+    import json
+    import sys
+
+    result = jax_spread()
+    print(json.dumps(result))
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(result, f, indent=1)
