@@ -144,6 +144,26 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 over the 32x32 cells against the shipped table within
                 twice the JAX package's seed-to-seed spread, fit_poly of
                 it, the SGGX self-test (every |e| < 0.02).
+  10. parallel — the tenth path, parallel/ (paths.parallel_runs) in
+                paths.PARALLEL_RANKS spawned ranks (parallel/launch.py;
+                NCCL with a card a rank, else gloo on cuda:0, printed):
+                a. pixel DP of the gltf path at 1920x1080, rank 0 loading
+                the .glb and replicating it, one warm-up sample, one
+                whose collectives are timed with the device synchronised
+                around each, and 2 timed samples, the gathered state
+                bit-identical to this process's 4 samples, per rank ms a
+                frame beside this process's, ms a frame in collectives,
+                launches, march segments and those with none of the
+                rank's own rays searching; b. sample DP of the
+                restir path at 1920x1080, 2 samples a rank, each rank's
+                state bit-identical to this process's render with seed
+                42 + 9176·rank, the merge within rtol 1e-6 of their mean,
+                the total, the ranks' images different; c. pixel DP of the
+                restir path at 256x128, 3 samples (temporal reuse finds a
+                G-buffer from the third), bit-identical; d. a camera orbit
+                of the Cornell path at 256x144 split over the ranks, its
+                PNGs byte-identical. The ranks' launches count in the
+                kernels line.
 The lines before the last hold one row per (kernel, ray kind) and the
 kernels' JSON summary (each kernel's time on the 1080p rays it serves on
 its path, or on its probe's reference configuration, its plain version's,
@@ -2290,6 +2310,203 @@ def phase_bake(dev):
     return secs
 
 
+def _states_digests(states) -> list:
+    from hiprt_pt_tpu_torch.parallel.jobs import state_digests
+
+    return [state_digests(st) for st in states]
+
+
+def _digests_differ(ref: dict, got: dict) -> list:
+    return sorted(k for k in ref if ref[k] != got.get(k))
+
+
+def phase_parallel(dev) -> dict:
+    """The tenth path, parallel/: paths.parallel_runs in
+    paths.PARALLEL_RANKS spawned ranks (parallel/launch.py; NCCL with a
+    card a rank, else gloo on cuda:0), each run held against this process:
+    a. pixel DP of the gltf path at 1920x1080 (rank 0 loads the .glb and
+    replicates it): the gathered state bit-identical to one process's 4
+    samples; per rank ms a frame beside one process's in this call, ms a
+    frame in collectives (as run, and in a sample with the device
+    synchronised around each), launches, march segments and those it ran
+    with none of its own rays searching.
+    b. sample DP of the restir path at 1920x1080: each rank's state
+    bit-identical to one process's render with seed 42 + 9176·rank, the
+    merged mean within rtol 1e-6 of their mean, the total 2 x 2, the ranks'
+    images different. c. pixel DP of the restir path at 256x128, 3
+    samples, bit-identical. d. the Cornell orbit's frames split over the ranks,
+    byte-identical PNGs. Launch counts are the ranks' (each resets its
+    counts just before its timed samples and reads them just after).
+    Returns the launches by kernel."""
+    import tempfile
+
+    from hiprt_pt_tpu_torch import paths
+    from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy
+    from hiprt_pt_tpu_torch.core.state import init_render_state
+    from hiprt_pt_tpu_torch.parallel import jobs
+    from hiprt_pt_tpu_torch.parallel.frames import render_distributed_sequence
+    from hiprt_pt_tpu_torch.parallel.launch import launch
+    from hiprt_pt_tpu_torch.parallel.mesh import _SAMPLE_DP_SEED_STRIDE
+    from hiprt_pt_tpu_torch.render.animation import CameraOrbitAnimation
+    from hiprt_pt_tpu_torch.render.renderer import Renderer, render_step
+
+    ranks = paths.PARALLEL_RANKS
+    backend = "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+    log(f"[parallel] {ranks} ranks on {backend} "
+        f"({torch.cuda.device_count()} card(s): "
+        f"{'a card a rank' if backend == 'nccl' else 'the ranks share cuda:0'})")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {r["name"]: r for r in paths.parallel_runs(
+            os.path.join(tmp, "ranks"))}
+        # this process's renders of the same runs
+        t0 = time.perf_counter()
+        ref = {}
+        for inp in paths.PARALLEL_INPUTS:
+            scene, cam, bvh = paths.load(inp, dev)[:3]
+            for name, run in runs.items():
+                if run["input"] != inp:
+                    continue
+                w, h = run.get("width"), run.get("height")
+                if run.get("mode") == "sequence":
+                    r = Renderer(scene, cam, w, h, options=run["options"],
+                                 settings=run["settings"], world=run["world"],
+                                 bvh=bvh)
+                    files = render_distributed_sequence(
+                        r, run["frames"], run["spp"],
+                        os.path.join(tmp, "one"),
+                        camera_animation=CameraOrbitAnimation(**run["orbit"]),
+                        process_index=0, process_count=1)
+                    ref[name] = {os.path.basename(f): _read_bytes(f)
+                                 for f in files}
+                    continue
+                restir = (run["options"].direct_light_sampling
+                          == LightSamplingStrategy.RESTIR_DI)
+                seeds = ([42 + _SAMPLE_DP_SEED_STRIDE * k for k in range(ranks)]
+                         if run.get("mode") == "samples" else [42])
+                states, ms = [], []
+                for sd in seeds:
+                    # the ranks' untimed samples, then their timed ones,
+                    # timed here too
+                    def step(st, n):
+                        return render_step(run["options"], w, h, scene, bvh,
+                                           st, cam, run["settings"],
+                                           run["world"], n_samples=n)
+                    st = step(init_render_state(w, h, sd, dev,
+                                                with_restir=restir),
+                              run.get("warmup", 0) + run.get("synced", 0))
+                    torch.cuda.synchronize(dev)
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    st = step(st, run["samples"])
+                    ev[1].record()
+                    torch.cuda.synchronize(dev)
+                    ms.append(ev[0].elapsed_time(ev[1]) / run["samples"])
+                    states.append(st)
+                ref[name] = (_states_digests(states),
+                             [st.accum.cpu().numpy() for st in states], ms)
+                del states, st
+            del scene, cam, bvh
+            torch.cuda.empty_cache()
+        secs_one = time.perf_counter() - t0
+
+        spec = {"runs": list(runs.values()),
+                "inputs": {k: k for k in paths.PARALLEL_INPUTS}}
+        t0 = time.perf_counter()
+        out = launch(jobs.render, ranks, (spec,), backend=backend,
+                     timeout=900)
+        secs_ranks = time.perf_counter() - t0
+        reps = {name: [o[name] for o in out] for name in runs}
+        log(f"[parallel] one process {secs_one:.1f} s for the four runs; the "
+            f"launch of {ranks} ranks {secs_ranks:.1f} s (spawn, rank 0's "
+            f"loads, replicate, renders, gathers)")
+
+        a = reps["pixels-gltf"]
+        ra = runs["pixels-gltf"]
+        frames, untimed = ra["samples"], ra["warmup"] + ra["synced"]
+        log(f"[parallel a] one process: {ref['pixels-gltf'][2][0]:.2f} ms a "
+            f"frame (CUDA events, the same {frames} frames)")
+        for r in a:
+            sy = r["synced"]
+            log(f"[parallel a] rank {r['rank']} ({r['device']}, "
+                f"{r['backend']}): {r['ms_per_sample']:.2f} ms a frame "
+                f"(CUDA events, {frames} frames after {untimed} others), "
+                f"{r['collective_ms'] / frames:.2f} ms a frame "
+                f"in collectives {r['collective_calls']} (host clock); in a "
+                f"frame with the device synchronised around each: "
+                f"{sy['collective_ms'] / max(sy['samples'], 1):.2f} ms "
+                f"{sy['collective_calls']}; launches {r['launches']}; "
+                f"march segments {r['segments']}, with no searching ray of "
+                f"its own {r['idle_segments']}")
+        bad = _digests_differ(ref["pixels-gltf"][0][0], a[0]["digests"])
+        log(f"[parallel a] gathered {ra['width']}x{ra['height']} state vs one "
+            f"process's {untimed + frames} samples: "
+            f"{'bit-identical' if not bad else f'differs in {bad}'} "
+            f"({len(ref['pixels-gltf'][0][0])} fields)")
+        if bad:
+            raise AssertionError(f"pixel DP of the gltf path differs from one "
+                                 f"process in {bad}")
+        if len({r["segments"] for r in a}) != 1:
+            raise AssertionError("the ranks ran different march segments")
+
+        b = reps["samples-restir"]
+        digests, accums, one_ms = ref["samples-restir"]
+        for k, r in enumerate(b):
+            bad = _digests_differ(digests[k], r["digests"])
+            log(f"[parallel b] rank {k}: {r['ms_per_sample']:.2f} ms a sample "
+                f"(one process: {one_ms[k]:.2f}), launches {r['launches']}; "
+                f"its state vs one process with seed "
+                f"{42 + _SAMPLE_DP_SEED_STRIDE * k}: "
+                f"{'bit-identical' if not bad else f'differs in {bad}'}")
+            if bad:
+                raise AssertionError(f"sample DP rank {k} differs from one "
+                                     f"process in {bad}")
+        mean = np.mean(accums, axis=0)
+        err = float(np.max(np.abs(b[0]["merged"] - mean)
+                           / np.maximum(np.abs(mean), 1e-30)))
+        same = all(np.array_equal(b[0]["arrays"]["accum"], r["arrays"]["accum"])
+                   for r in b[1:])
+        log(f"[parallel b] merge_sample_dp: max relative |diff| to the mean "
+            f"of one process's renders {err:.3e} (rtol 1e-6), total "
+            f"{b[0]['total']}, ranks' images differ: {not same}")
+        want = ranks * runs["samples-restir"]["samples"]
+        if not (np.allclose(b[0]["merged"], mean, rtol=1e-6, atol=0.0)
+                and b[0]["total"] == want and not same):
+            raise AssertionError("merge_sample_dp disagrees with one process")
+
+        c = reps["pixels-restir"]
+        bad = _digests_differ(ref["pixels-restir"][0][0], c[0]["digests"])
+        rc = runs["pixels-restir"]
+        log(f"[parallel c] ReSTIR DI pixel DP at {rc['width']}x{rc['height']}, "
+            f"{rc['samples']} samples: "
+            f"{'bit-identical' if not bad else f'differs in {bad}'}; "
+            f"collectives {c[0]['collective_calls']}")
+        if bad:
+            raise AssertionError(f"pixel DP with ReSTIR differs in {bad}")
+
+        d = reps["sequence-cornell"]
+        files = {os.path.basename(f): _read_bytes(f)
+                 for r in d for f in r["paths"]}
+        same = files == ref["sequence-cornell"]
+        log(f"[parallel d] the Cornell orbit, {len(files)} frames over "
+            f"{ranks} ranks ({[len(r['paths']) for r in d]}): PNGs "
+            f"{'byte-identical' if same else 'differ'} to one process's; "
+            f"launches {[r['launches'] for r in d]}")
+        if not same or len(files) != paths.PARALLEL_SEQUENCE["frames"]:
+            raise AssertionError("the frame sequence differs from one process")
+
+    launches: dict = {}
+    for rep in reps.values():
+        for r in rep:
+            for k, v in (r or {}).get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    for k in ("trace_coherent", "trace_incoherent", "trace_meganode"):
+        if not launches.get(k):
+            raise AssertionError(f"the parallel path's ranks launched no {k}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     from hiprt_pt_tpu_torch import paths
 
@@ -2349,6 +2566,11 @@ def main() -> int:
     secs = phase_bake(dev)
     log(f"[bake] {time.perf_counter() - t_bake:.1f} s: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in secs.items()))
+    t_parallel = time.perf_counter()
+    for k, v in phase_parallel(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[parallel] {time.perf_counter() - t_parallel:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # one row per (path, kernel, ray kind): the kind's mode, launches per
     # frame, and what those launches cost above the bound

@@ -119,6 +119,17 @@ def camera_from_gltf_node(translation, rotation, yfov: float, aspect: float,
     return Camera.create(view, yfov, aspect, near, far, device=device)
 
 
+def row_products(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x (N,K) @ m.T for a small (J,K) matrix m, summed term by term in one
+    order: a matrix product's result may depend on how many rows it has
+    (its algorithm does), and a pixel's ray must not depend on how many
+    pixels a render step holds (parallel/mesh.py: pixel shards)."""
+    out = x[:, 0:1] * m[:, 0]
+    for k in range(1, x.shape[1]):
+        out = out + x[:, k:k + 1] * m[:, k]
+    return out
+
+
 def generate_camera_rays(camera: Camera, width: int, height: int,
                          jitter: torch.Tensor | None = None,
                          px: torch.Tensor | None = None,
@@ -141,9 +152,9 @@ def generate_camera_rays(camera: Camera, width: int, height: int,
     ndc_y = (pyf + jy) / height * 2.0 - 1.0
     ones = torch.ones_like(ndc_x)
     ndc = torch.stack([ndc_x, ndc_y, -ones, ones], dim=-1)
-    view_pt = ndc @ camera.proj_inv.T
+    view_pt = row_products(ndc, camera.proj_inv)
     view_pt = view_pt[:, :3] / view_pt[:, 3:4]
-    dirs = view_pt @ camera.view_inv[:3, :3].T
+    dirs = row_products(view_pt, camera.view_inv[:3, :3])
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
     origins = camera.position.expand(n, 3).contiguous()
     return origins, dirs

@@ -79,12 +79,14 @@ class RenderState:
 
 
 def init_render_state(width: int, height: int, seed: int = 42,
-                      device=None, with_restir: bool = False) -> RenderState:
+                      device=None, with_restir: bool = False,
+                      pixels: Optional[int] = None) -> RenderState:
     """A fresh render state on ``device`` (default: the GPU, see
     core/device.py:resolve_device); ``with_restir``: with empty ReSTIR
-    reservoirs."""
+    reservoirs; ``pixels``: the pixels it holds (default width * height; a
+    pixel shard of parallel/mesh.py holds a range of them)."""
     device = resolve_device(device)
-    n = width * height
+    n = width * height if pixels is None else pixels
     f32 = dict(dtype=torch.float32, device=device)
     restir = None
     if with_restir:

@@ -1,10 +1,11 @@
 """Carry scenes, BVHs and render states across from the JAX package.
 
 The JAX package's ``SceneData`` (with its texture atlas and envmap),
-``BVHData``, ``RenderState``, ReSTIR ``Reservoir``, ``WorldSettings`` and the
-learned denoiser's weights are given as dicts of numpy arrays keyed by
-field name (nested dicts for the material bank, the G-buffers and the
-reservoirs), so this
+``BVHData``, ``RenderState`` (also a rank's slice of its sample-DP state
+and a shard's rows of its pixel-sharded state), ReSTIR ``Reservoir``,
+``WorldSettings`` and the learned denoiser's weights are given as dicts of
+numpy arrays keyed by field name (nested dicts for the material bank, the
+G-buffers and the reservoirs), so this
 module imports nothing of JAX. ``to_numpy`` turns a port dataclass back into
 such a dict. Each ``*_from_numpy`` puts its tensors on ``device``: the GPU
 unless the caller passes ``device="cpu"``.
@@ -179,6 +180,33 @@ def state_from_numpy(d: dict, device=None) -> RenderState:
         else:
             kw[f.name] = _t(v, device)
     return RenderState(**kw)
+
+
+def _map_arrays(d, fn):
+    """A nested dict of numpy arrays with ``fn`` applied to each array."""
+    if isinstance(d, dict):
+        return {k: _map_arrays(v, fn) for k, v in d.items()}
+    return fn(np.asarray(d)) if d is not None else None
+
+
+def sample_dp_state_from_numpy(d: dict, rank: int, device=None) -> RenderState:
+    """Rank ``rank``'s RenderState of a JAX sample-DP state (its
+    ``init_sample_dp_state``: every field stacked on a leading 'samples'
+    axis, one slice per device): the k-th slice, the state that the port's
+    sample-DP rank k holds (parallel/mesh.py)."""
+    return state_from_numpy(_map_arrays(d, lambda a: a[rank]), device)
+
+
+def shard_state_from_numpy(d: dict, start: int, stop: int,
+                           device=None) -> RenderState:
+    """The RenderState of pixels [start, stop) of a JAX pixel-sharded state
+    (the whole image's fields, as ``jax.device_get`` gives them): its
+    per-pixel rows, and the counters, which are the image's; the state that
+    the port's pixel shard [start, stop) holds (parallel/mesh.py)."""
+    n = np.asarray(d["accum"]).shape[0]
+    return state_from_numpy(_map_arrays(
+        d, lambda a: a[start:stop] if a.ndim >= 1 and a.shape[0] == n else a),
+        device)
 
 
 def denoiser_params_from_numpy(d: dict, device=None):

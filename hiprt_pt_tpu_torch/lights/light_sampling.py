@@ -32,7 +32,8 @@ def _alias_draw(rows, u_sel, u_acc):
 
 
 def sample_emissive_triangle(scene, p: torch.Tensor, rng_state,
-                             tile_size: int | None = None):
+                             tile_size: int | None = None,
+                             wavefront_size: int | None = None):
     """Sample one emissive-triangle point per shading point p (N,3).
 
     Returns (rng_state, dict) with wi (N,3) unit direction to the light,
@@ -43,14 +44,17 @@ def sample_emissive_triangle(scene, p: torch.Tensor, rng_state,
     With ``tile_size`` set, all rays of one wavefront tile share the
     triangle drawn with the tile's first ray's uniforms (the point on it
     stays per ray): each ray's marginal density, and so every pdf, is
-    unchanged (reference: LightsPresampling.h, tile-coherent subsets)."""
+    unchanged (reference: LightsPresampling.h, tile-coherent subsets).
+    Tiles are shared when the wavefront has more rays than a tile:
+    ``wavefront_size`` is the wavefront's size when p holds only a part
+    of it (a pixel shard: whole tiles of it), else p's own."""
     rng_state, u_sel = rng_mod.next_float(rng_state)
     rng_state, u1, u2 = rng_mod.next_float2(rng_state)
     rng_state, u_acc = rng_mod.next_float(rng_state)
 
     rows = scene.emissive_rows
     n = p.shape[0]
-    if tile_size is not None and n > tile_size:
+    if tile_size is not None and (wavefront_size or n) > tile_size:
         base = (torch.arange(0, n, tile_size, device=p.device)).clamp_max(n - 1)
         row = _alias_draw(rows, u_sel[base], u_acc[base])
         row = row.repeat_interleave(tile_size, dim=0)[:n]

@@ -28,6 +28,7 @@ from ..core.settings import RenderOptions
 from ..models.dispatcher import (bsdf_eval, bsdf_proxy_ctx, bsdf_proxy_eval_ctx,
                                  bsdf_proxy_sample_ctx, bsdf_sample)
 from ..ops.intersect import offset_ray_origin
+from ..ops.pixel_order import PixelRange
 from ..ops.routing import tracer
 from ..ops.tonemap import luminance
 from ..ops.traverse import shadow_blocked
@@ -41,16 +42,19 @@ DENSE_EMISSIVE_MAX = 1024
 
 def ris_direct_lighting(options: RenderOptions, scene, bvh, settings, mats,
                         p, ns, ng, wo, rng_state, active, eta_rel,
-                        shadow_coherent: bool = False):
+                        shadow_coherent: bool = False, shard=None):
     """RIS+WRS direct lighting at a batch of vertices.
 
     Returns (rng_state, contribution (N,3), rays traced (() int64)).
     ``shadow_coherent``: this wavefront's shadow rays are screen-tile
     coherent (the camera vertex with tile-shared light candidates), so they
-    take the coherent route."""
+    take the coherent route. ``shard``: the pixel range (whole tiles) the
+    vertices belong to (ops/pixel_order.py:PixelRange; default: the whole
+    wavefront)."""
     trace = tracer(bvh, shadow_coherent, options.use_pallas_traversal)
     n = p.shape[0]
     dev = p.device
+    shard = shard or PixelRange.batch(n)
     M_l = int(settings.ris.number_of_light_candidates)
     M_b = int(settings.ris.number_of_bsdf_candidates)
     aux = {"eta_rel": eta_rel}
@@ -86,7 +90,9 @@ def ris_direct_lighting(options: RenderOptions, scene, bvh, settings, mats,
     # --- light candidates ---
     tile = options.ris_tile_light_candidates or None
     for _ in range(M_l):
-        rng_state, ls = sample_emissive_triangle(scene, p, rng_state, tile_size=tile)
+        rng_state, ls = sample_emissive_triangle(
+            scene, p, rng_state, tile_size=tile,
+            wavefront_size=shard.num_pixels)
         wi = ls["wi"]
         cos_i = (ns * wi).sum(dim=-1)
         f, pdf_b = target_eval(wi)
@@ -155,7 +161,7 @@ def ris_direct_lighting(options: RenderOptions, scene, bvh, settings, mats,
     # alpha-aware with alpha textures, on the same route (reference:
     # FilterFunction.h applies the stochastic alpha test to every shadow ray)
     rng_state, blocked = shadow_blocked(bvh, scene, so, res["wi"], rng_state,
-                                        t_max_w, has_winner, trace)
+                                        t_max_w, has_winner, trace, shard)
     n_rays = n_rays + has_winner.sum()
     contrib = torch.where((has_winner & ~blocked)[..., None],
                           integrand * W[..., None], 0.0)

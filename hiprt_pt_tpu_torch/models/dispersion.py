@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.camera import row_products
+
 LAMBDA_MIN = 380.0
 LAMBDA_MAX = 730.0
 # Fraunhofer lines of the Abbe number
@@ -83,8 +85,8 @@ def wavelength_rgb_weight(lam_nm):
     [LAMBDA_MIN, LAMBDA_MAX]; E[weight] = (1, 1, 1)."""
     x, y, z = xyz_of_wavelength(lam_nm)
     xyz = torch.stack([x, y, z], dim=-1)
-    m = torch.from_numpy(_XYZ_TO_RGB.T.copy()).to(xyz.device)
-    rgb = torch.clamp_min(xyz @ m, 0.0)
+    m = torch.from_numpy(_XYZ_TO_RGB.copy()).to(xyz.device)
+    rgb = torch.clamp_min(row_products(xyz, m), 0.0)
     return rgb / torch.from_numpy(_RGB_NORM).to(xyz.device)
 
 

@@ -44,6 +44,7 @@ import torch
 from ..accel.build import MEGANODE_LEAF_TRIS
 from ..core import rng as rng_mod
 from .intersect import triangle_test
+from .pixel_order import PixelRange
 from .texture import apply_textures
 
 STACK_SIZE = 64
@@ -369,7 +370,9 @@ def occluded(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None) -> torch.Te
 # segments run, by the name of the traversal that ran them; with a tally,
 # also the shadow rays it was given ("rays"), those the prune found a
 # blocker for ("entered") and those that passed through at least one
-# surface ("passed"): device tensors, read on the host only by the caller
+# surface ("passed") and the segments run with none of the batch's own rays
+# searching ("idle": only a shard's march runs such a segment, for the
+# other shards): device tensors, read on the host only by the caller
 march_counts: dict = {}
 
 
@@ -377,7 +380,7 @@ def reset_march_counts(tally: bool = False) -> None:
     march_counts.clear()
     march_counts.update(calls=0, segments={})
     if tally:
-        march_counts.update(rays=0, entered=0, passed=0)
+        march_counts.update(rays=0, entered=0, passed=0, idle=0)
 
 
 reset_march_counts()
@@ -397,7 +400,7 @@ def alpha_shadows(scene) -> bool:
 
 def occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
                    t_max=float("inf"), active=None, max_segments: int = 4,
-                   trace=None, prune: bool = True):
+                   trace=None, prune: bool = True, shard=None):
     """Alpha-aware shadow test (reference: stochastic alpha in the
     traversal filter function, FilterFunction.h:19-49), the JAX package's
     ``occluded_alpha``: march up to ``max_segments`` closest hits, passing
@@ -411,11 +414,16 @@ def occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
     alpha-blind any-hit pass first drops the rays that nothing blocks. A
     segment draws one ``next_float`` for every ray of the batch; a segment
     with no searching ray is skipped, draws included, as the JAX package's
-    ``lax.cond`` skips it: the check is one host sync a segment.
+    ``lax.cond`` skips it: the check is one host sync a segment. Under a
+    ``shard`` (ops/pixel_order.py:PixelRange; the rays are its pixels') the
+    check is the image's: a segment that one device would run draws for
+    every ray, so a shard runs it, draws included, while any shard's rays
+    still search.
     Returns (rng_state, occluded (N,) bool)."""
     trace = traverse if trace is None else trace
     n = o.shape[0]
     dev = o.device
+    shard = shard or PixelRange.batch(n)
     searching = (torch.ones((n,), dtype=torch.bool, device=dev)
                  if active is None else active.to(torch.bool))
     march_counts["calls"] += 1
@@ -430,9 +438,10 @@ def occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
     cur_o = o
     name = getattr(trace, "__name__", "trace")
     for _ in range(max_segments):
-        if not bool(searching.any()):
+        if not shard.any(searching):
             break
         march_counts["segments"][name] = march_counts["segments"].get(name, 0) + 1
+        _tally("idle", ~searching.any())
         rec = trace(bvh, cur_o, d, t_min=t_min, t_max=remaining,
                     active=searching, any_hit=False)
         hit = (rec.prim >= 0) & searching
@@ -461,14 +470,17 @@ def occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
     return rng_state, occluded
 
 
-def shadow_blocked(bvh, scene, o, d, rng_state, t_max, active, trace):
+def shadow_blocked(bvh, scene, o, d, rng_state, t_max, active, trace,
+                   shard=None):
     """(rng_state, blocked (N,) bool) of the shadow rays (o, d) from t_min =
     1e-4 to t_max: through ``occluded_alpha`` on ``trace`` when the scene's
     textures carry alpha (alpha_shadows) and a PCG stream is given, which it
     then advances; else one alpha-blind any-hit trace on ``trace``, which
-    draws nothing (the JAX package's gates at its three call sites)."""
+    draws nothing (the JAX package's gates at its three call sites).
+    ``shard``: the pixel range the rays belong to (occluded_alpha)."""
     if alpha_shadows(scene) and rng_state is not None:
         return occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
-                              t_max=t_max, active=active, trace=trace)
+                              t_max=t_max, active=active, trace=trace,
+                              shard=shard)
     return rng_state, trace(bvh, o, d, t_min=1e-4, t_max=t_max, active=active,
                             any_hit=True).prim >= 0

@@ -63,6 +63,17 @@ each path's scene, camera, BVH and render options, at the 16:9 aspect of a
   ambient), at 1920x1080 (the README has 1280x720); its presets switch to
   RIS at half the grid and to ReSTIR DI. trace_coherent and
   trace_incoherent.
+- The ``parallel`` runs (parallel_runs; not one of PATHS, which one
+  process profiles): the system's multi-process rendering (parallel/, one
+  process a rank on torch.distributed) on the scenes above, in
+  PARALLEL_RANKS ranks: pixel DP of the gltf path at
+  1920x1080 (its scene loaded by rank 0 and replicated; the alpha march's
+  segment skip and the counters the image's), sample DP of the restir
+  path at 1920x1080 (each rank its own seed), pixel DP of the restir path
+  at 256x128 (ReSTIR's neighbours across the shards) and the
+  frame-sequence split of a camera orbit on the Cornell path at 256x144.
+  trace_coherent and trace_incoherent, and trace_meganode in the
+  sequence.
 """
 
 from __future__ import annotations
@@ -98,6 +109,14 @@ GLTF_CUTOUTS = (2, 3, 4, 17)
 # the cli path's flags, after the scene file
 CLI_FLAGS = ("--strategy=restir", "--denoise", "--w=1920", "--h=1080",
              "--bounces=4", "--samples=4", "--spp-per-frame=2")
+# the parallel path: its ranks, the paths whose scenes its runs render
+# (rank 0 loads each), and its sequence's size, frames, samples a frame and
+# orbit (about the Cornell camera's target)
+PARALLEL_RANKS = 2
+PARALLEL_INPUTS = ("gltf", "restir", "cornell")
+PARALLEL_SEQUENCE = dict(width=256, height=144, frames=4, spp=2,
+                         orbit=dict(target=(0.0, 0.9, 0.0),
+                                    degrees_per_frame=20.0))
 
 
 def cli_argv(scene_file: str, folder: str) -> list:
@@ -107,6 +126,34 @@ def cli_argv(scene_file: str, folder: str) -> list:
     out = os.path.join(folder, "cli")
     return [scene_file, *CLI_FLAGS, f"--out={out}.png", f"--hdr-out={out}.hdr",
             f"--checkpoint={out}.npz"]
+
+
+def parallel_runs(folder: str) -> list:
+    """The parallel runs (parallel/jobs.py:render): "pixels-gltf", pixel
+    DP of the gltf path at 1920x1080, one warm-up sample, one whose
+    collectives are timed with the device synchronised, and 2 timed ones;
+    "samples-restir", sample DP of the restir path at 1920x1080, 2 samples
+    a rank; "pixels-restir", pixel DP of the restir path at 256x128, 3
+    samples (temporal reuse reads the G-buffer of the sample before the
+    last, as in the JAX package, so it finds one from the third; spatial
+    taps cross the shards); "sequence-cornell", the Cornell path's options
+    at PARALLEL_SEQUENCE, its PNGs written into ``folder``."""
+    gltf = dict(zip(("options", "settings", "world"), slice_options("gltf")))
+    restir = dict(zip(("options", "settings", "world"),
+                      slice_options("restir")))
+    opts, settings, world = slice_options("cornell")
+    seq = dict(PARALLEL_SEQUENCE)
+    return [
+        dict(name="pixels-gltf", input="gltf", width=1920, height=1080,
+             warmup=1, synced=1, samples=2, **gltf),
+        dict(name="samples-restir", input="restir", mode="samples",
+             width=1920, height=1080, samples=2, keep=("accum",), **restir),
+        dict(name="pixels-restir", input="restir", width=256, height=128,
+             samples=3, **restir),
+        dict(name="sequence-cornell", input="cornell", mode="sequence",
+             options=opts, world=world, out_dir=folder,
+             settings=settings.replace(samples_per_frame=seq["spp"]), **seq),
+    ]
 
 
 def write_gltf_scene(folder: str) -> str:

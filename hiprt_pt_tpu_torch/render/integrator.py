@@ -35,6 +35,12 @@ the BSDF eval), the envmap sample's draws, then the BSDF sample's draws
 (the override's pair, or the principled BSDF's u_sel, u1, u2, u3), then
 u_rr. The host syncs once per bounce, to skip bounces with no live ray, and
 in the march once per segment.
+
+A render step may hold only a range of the image's pixels (``shard``, an
+ops/pixel_order.py:PixelRange of whole tiles: parallel/mesh.py's pixel
+shards): its camera rays are the range's pixels', and the bounce skip and
+the march's segment skip are the image's decisions, so that every range
+draws what one device draws and stays in step with the others.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ from ..models.dispatcher import bsdf_eval, bsdf_sample
 from ..models.dispersion import (ior_at_wavelength, sample_wavelength,
                                  wavelength_rgb_weight)
 from ..ops.intersect import offset_ray_origin
-from ..ops.pixel_order import pixel_coords
+from ..ops.pixel_order import PixelRange
 from ..ops.routing import tracer as _tracer
 from ..ops.sampling import balance_heuristic
 from ..ops.texture import apply_normal_map, apply_textures
@@ -127,18 +133,20 @@ def _clamp_contribution(contrib, clamp_val: float):
 
 def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
                      width: int, height: int, sample_number: int, rng_state,
-                     options: RenderOptions = RenderOptions()):
-    """Primary-ray pass filling the G-buffer.
+                     options: RenderOptions = RenderOptions(), shard=None):
+    """Primary-ray pass filling the G-buffer, for the pixels of ``shard``
+    (default: the whole image).
     Returns (rng_state, GBuffer, pixel_active)."""
     dev = rng_state.device
+    shard = shard or PixelRange.whole(width, height)
     rng_state, jx = rng_mod.next_float(rng_state)
     rng_state, jy = rng_mod.next_float(rng_state)
     jitter = torch.stack([jx, jy], dim=-1)
     # tile-major order → each 128-ray packet is one 16x8 tile
-    px, py = pixel_coords(width, height, dev)
+    px, py = shard.coords(dev)
     o, d = generate_camera_rays(camera, width, height, jitter, px, py)
 
-    active = torch.ones((width * height,), dtype=torch.bool, device=dev)
+    active = torch.ones((shard.size,), dtype=torch.bool, device=dev)
     if settings.render_low_resolution:
         sc = settings.low_resolution_scale
         active = ((px % sc) == 0) & ((py % sc) == 0)
@@ -170,14 +178,15 @@ def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
 def _direct_lighting(options: RenderOptions, scene, bvh, world: WorldSettings,
                      settings: RenderSettings, mats, p, ns, ng, wo,
                      rng_state, active, eta_rel=None,
-                     shadow_coherent: bool = False):
+                     shadow_coherent: bool = False, shard=None):
     """Direct light at one path vertex: emissive triangles,
     ``number_of_light_samples`` times averaged, by RIS over light and BSDF
     candidates (lights/ris.py) or by NEE of power-sampled emissive
     triangles MIS-weighted against the BSDF; then one envmap sample
     (``_envmap_nee``). ``shadow_coherent``: the emissive shadow rays are
-    screen-tile coherent (the camera vertex). Returns (rng_state, radiance
-    (N,3), shadow-ray count (() int64 tensor))."""
+    screen-tile coherent (the camera vertex). ``shard``: the pixel range
+    the vertices belong to. Returns (rng_state, radiance (N,3), shadow-ray
+    count (() int64 tensor))."""
     contrib = torch.zeros_like(p)
     n_shadow = torch.zeros((), dtype=torch.int64, device=p.device)
     n_ls = max(int(settings.number_of_light_samples), 1)
@@ -189,14 +198,14 @@ def _direct_lighting(options: RenderOptions, scene, bvh, world: WorldSettings,
         for _ in range(n_ls):
             rng_state, c, rays = ris_direct_lighting(
                 options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
-                active, eta_rel, shadow_coherent=shadow_coherent)
+                active, eta_rel, shadow_coherent=shadow_coherent, shard=shard)
             c = _clamp_contribution(c, settings.direct_contribution_clamp)
             contrib = contrib + c * inv_ls
             n_shadow = n_shadow + rays
     elif _nee_enabled(options):
         rng_state, contrib, n_shadow = _emissive_nee(
             options, scene, bvh, settings, mats, p, ns, ng, wo, rng_state,
-            active, eta_rel, shadow_coherent)
+            active, eta_rel, shadow_coherent, shard)
     if envmap_sampled(options, scene):
         rng_state, c, rays = _envmap_nee(options, scene, bvh, world, settings,
                                          mats, p, ns, ng, wo, rng_state,
@@ -207,7 +216,7 @@ def _direct_lighting(options: RenderOptions, scene, bvh, world: WorldSettings,
 
 
 def _emissive_nee(options: RenderOptions, scene, bvh, settings, mats, p, ns,
-                  ng, wo, rng_state, active, eta_rel, shadow_coherent):
+                  ng, wo, rng_state, active, eta_rel, shadow_coherent, shard):
     """NEE of power-sampled emissive triangles, ``number_of_light_samples``
     times averaged. Returns (rng_state, radiance (N,3), shadow rays)."""
     contrib = torch.zeros_like(p)
@@ -225,7 +234,7 @@ def _emissive_nee(options: RenderOptions, scene, bvh, settings, mats, p, ns,
         so = offset_ray_origin(p, ng, wi)
         t_max = ls["dist"] * (1.0 - 1e-3)
         rng_state, blocked = shadow_blocked(bvh, scene, so, wi, rng_state,
-                                            t_max, cand, occluded)
+                                            t_max, cand, occluded, shard)
         n_shadow = n_shadow + cand.sum()
         vis = cand & ~blocked
         c = f * ls["radiance"] * (cos_i / ls["pdf"].clamp_min(1e-12))[..., None]
@@ -267,14 +276,20 @@ def _envmap_nee(options: RenderOptions, scene, bvh, world: WorldSettings,
 
 def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
                   settings: RenderSettings, gbuffer: GBuffer, pixel_active,
-                  rng_state, direct0=None, collect_bounce_stats: bool = False):
+                  rng_state, direct0=None, collect_bounce_stats: bool = False,
+                  shard=None):
     """Trace one full path per pixel from the G-buffer's first hit.
     ``direct0``: the camera vertex's direct light (ReSTIR DI), which
     replaces that vertex's NEE; the NEE there still runs with every ray
     masked, so that the RNG stream stays the JAX package's. Under
     ``options.white_furnace_mode`` the world is a uniform white and
     emission and NEE are off: any pixel away from 1 is the BSDF's energy
-    gain or loss (reference: white furnace mode).
+    gain or loss (reference: white furnace mode). ``shard``: the pixel
+    range of the G-buffer (default: the whole image); a bounce is skipped
+    when no path of the image is alive, so that every range runs the same
+    bounces and marches (the collectives of a range held by a rank of a
+    process group are made by all of them), though a range with no live
+    path of its own would draw nothing a pixel keeps.
 
     Returns (rng_state, radiance (N,3), aov_albedo (N,3), aov_normal (N,3),
     rays traced by this sample excluding the camera pass (() int64)); with
@@ -283,6 +298,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     still_one_ray_active, per depth)."""
     n_rays = gbuffer.position.shape[0]
     dev = gbuffer.position.device
+    shard = shard or PixelRange.batch(n_rays)
     mats_all = scene.materials
     d0 = gbuffer.ray_dir
     hit0 = gbuffer.prim_index >= 0
@@ -323,7 +339,7 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     for bounce in range(n_bounces):
         # the one host sync of a bounce: a bounce with no live ray is skipped
         # and leaves the RNG stream untouched, as in the JAX package
-        if not bool(active.any()):
+        if not shard.any(active):
             break
         if collect_bounce_stats:
             alive[bounce] = active.sum()
@@ -392,7 +408,8 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
             nee_active = torch.zeros_like(nee_active)
         rng_state, direct, n_shadow = _direct_lighting(
             options, scene, bvh, world, settings, mats, p, ns, ng, wo,
-            rng_state, nee_active, eta_rel, shadow_coherent=(bounce == 0))
+            rng_state, nee_active, eta_rel, shadow_coherent=(bounce == 0),
+            shard=shard)
         if direct0 is not None and bounce == 0:
             direct = direct0
         radiance = radiance + torch.where(active[..., None], throughput * direct, 0.0)

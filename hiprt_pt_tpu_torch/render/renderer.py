@@ -12,6 +12,12 @@ passes, reports the kernels it routes to, and reads the images out. Work is
 queued on the current CUDA stream (or runs on the CPU); ``step`` does not
 synchronize unless asked to. The sample count is the state's host integer,
 so the stop conditions read no device value but the converged-pixel count.
+
+``render_step(..., shard=...)`` advances the state of a range of the
+image's pixels (ops/pixel_order.py:PixelRange; parallel/mesh.py's pixel
+shards): each pixel keyed by its index in the whole image, the counters
+and the skips the image's, ReSTIR's neighbour rows gathered from every
+range, so that the ranges' states put together are one device's.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from ..core.device import elapsed_ms
 from ..core.settings import (LightSamplingStrategy, RenderOptions,
                              RenderSettings, WorldSettings)
 from ..core.state import RenderState, init_render_state
-from ..ops.pixel_order import unscramble
+from ..ops.pixel_order import PixelRange, unscramble
 from ..ops.texture import apply_textures
 from ..ops.tonemap import luminance, resolve_accumulation, tonemap_gamma
 from ..restir import di
@@ -44,14 +50,16 @@ def run_stage(_name: str, fn, *args, **kw):
 def restir_reuse(options: RenderOptions, width: int, height: int, scene, bvh,
                  state: RenderState, settings: RenderSettings,
                  world: WorldSettings, gbuf, active, sample_number: int,
-                 rng_state, stage=run_stage):
+                 rng_state, stage=run_stage, shard=None):
     """The ReSTIR DI pipeline for the camera vertex (reference:
     ReSTIRDIRenderPass::launch): presampled lights, initial candidates,
     visibility reuse, temporal reuse and the spatial passes (or the fused
     pass), final shading. Each pass runs as ``stage(name, fn, *args,
     **kw)``, so that a caller can time a pass or keep its inputs.
+    ``shard``: the pixel range of ``gbuf`` (default: the whole image).
     Returns (the new reservoirs, the camera vertex's direct light (N,3),
     final shading's unblocked visibility rays (() int64), rng_state)."""
+    shard = shard or PixelRange.whole(width, height)
     active0 = active & (gbuf.prim_index >= 0)
     mats0 = scene.materials.at_indices(gbuf.material_id.clamp_min(0)).make_safe()
     if scene.textures is not None:
@@ -63,8 +71,7 @@ def restir_reuse(options: RenderOptions, width: int, height: int, scene, bvh,
     pool = (stage("light pool", di.presample_lights, scene, sample_number,
                   options)
             if options.restir_do_light_presampling else None)
-    tile_id = torch.arange(width * height, dtype=torch.int32,
-                           device=gbuf.position.device) // 128
+    tile_id = (shard.index(gbuf.position.device) // 128).to(torch.int32)
     res, rng_state = stage(
         "initial candidates", di.initial_candidates, options, scene, bvh,
         world, settings, mats0, gbuf.position, gbuf.shading_normal,
@@ -78,54 +85,64 @@ def restir_reuse(options: RenderOptions, width: int, height: int, scene, bvh,
             "fused spatiotemporal reuse", di.fused_spatiotemporal_reuse,
             options, settings, scene, mats0, gbuf, state.prev_gbuffer,
             state.restir, res, eta0, active0, width, height,
-            state.prev_view_proj, rng_state)
+            state.prev_view_proj, rng_state, shard=shard)
     else:
         res, rng_state = stage(
             "temporal reuse", di.temporal_reuse, options, settings, scene,
             mats0, gbuf, state.prev_gbuffer, state.restir, res, eta0, active0,
-            width, height, state.prev_view_proj, rng_state)
+            width, height, state.prev_view_proj, rng_state, shard=shard)
         rs = settings.restir_di
         n_spatial = int(rs.num_spatial_passes) if rs.spatial_enabled else 0
         for i in range(n_spatial):
             res, rng_state = stage(
                 f"spatial pass {i + 1}", di.spatial_reuse_pass, options,
                 settings, scene, mats0, gbuf, res, eta0, active0, width,
-                height, rng_state, bvh=bvh, is_last_pass=i == n_spatial - 1)
+                height, rng_state, bvh=bvh, is_last_pass=i == n_spatial - 1,
+                shard=shard)
     direct, n_rays, rng_state = stage(
         "final shading", di.final_shading, options, scene, bvh, world, mats0,
-        gbuf, res, eta0, active0, rng_state=rng_state, settings=settings)
+        gbuf, res, eta0, active0, rng_state=rng_state, settings=settings,
+        shard=shard)
     return res, direct, n_rays, rng_state
 
 
 def render_step(options: RenderOptions, width: int, height: int, scene,
                 bvh: BVHData, state: RenderState, camera,
                 settings: RenderSettings, world: WorldSettings,
-                stage=run_stage, n_samples: int = 1) -> RenderState:
+                stage=run_stage, n_samples: int = 1,
+                shard=None) -> RenderState:
     """Advance the render state by ``n_samples`` samples; returns the new
     state (the input is left as it was). Each sample is keyed by the
     state's ``sample_count``, which advances sample by sample, so one call
     of n samples is the same as n calls of one. ``stage``: how each pass of
-    the ReSTIR pipeline runs (restir_reuse)."""
+    the ReSTIR pipeline runs (restir_reuse). ``shard``: the pixel range
+    that ``state`` holds (ops/pixel_order.py:PixelRange, whole tiles of a
+    tileable image; default: the whole image); its ``rays_traced`` and
+    ``nb_pixels_converged`` are the image's."""
+    if shard is not None and state.num_pixels != shard.size:
+        raise ValueError(f"the state holds {state.num_pixels} pixels; the "
+                         f"shard [{shard.start}, {shard.stop}) holds "
+                         f"{shard.size}")
     for _ in range(n_samples):
         state = _sample_step(options, width, height, scene, bvh, state,
-                             camera, settings, world, stage)
+                             camera, settings, world, stage, shard)
     return state
 
 
 def _sample_step(options: RenderOptions, width: int, height: int, scene,
                  bvh: BVHData, state: RenderState, camera,
                  settings: RenderSettings, world: WorldSettings,
-                 stage) -> RenderState:
+                 stage, shard) -> RenderState:
     """One sample of ``render_step``."""
     sample_number = 0 if settings.freeze_random else state.sample_count
-    n = width * height
+    pixels = shard or PixelRange.whole(width, height)
     dev = state.accum.device
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
-    rng_state = rng_mod.seed(pix, sample_number, state.seed)
+    # each pixel's stream is keyed by its index in the whole image
+    rng_state = rng_mod.seed(pixels.index(dev), sample_number, state.seed)
 
     rng_state, gbuf, active = camera_rays_pass(
         scene, bvh, camera, settings, state, width, height, sample_number,
-        rng_state, options)
+        rng_state, options, shard=pixels)
     # without reservoirs in the state every vertex runs RIS, as in the JAX
     # package
     direct0, restir, restir_rays = None, state.restir, 0
@@ -133,11 +150,13 @@ def _sample_step(options: RenderOptions, width: int, height: int, scene,
             and state.restir is not None):
         restir, direct0, restir_rays, rng_state = restir_reuse(
             options, width, height, scene, bvh, state, settings, world, gbuf,
-            active, sample_number, rng_state, stage)
+            active, sample_number, rng_state, stage, shard=pixels)
     rng_state, radiance, aov_albedo, aov_normal, path_rays = render_sample(
         options, scene, bvh, world, settings, gbuf, active, rng_state,
-        direct0=direct0)
-    total_rays = state.rays_traced + path_rays + restir_rays + active.sum()
+        direct0=direct0, shard=pixels)
+    # the state's count is the image's already: add the image's increment
+    total_rays = state.rays_traced + pixels.sum(
+        path_rays + restir_rays + active.sum())
 
     # --- accumulation (reference: FullPathTracer.h:296-326) ---
     act3 = active[..., None]
@@ -174,7 +193,7 @@ def _sample_step(options: RenderOptions, width: int, height: int, scene,
         accum_sq_luminance=accum_sq,
         pixel_sample_count=pix_count,
         pixel_converged=converged,
-        nb_pixels_converged=converged.sum(),
+        nb_pixels_converged=pixels.sum(converged.sum()),
         denoiser_albedo=state.denoiser_albedo + torch.where(act3, aov_albedo, 0.0),
         denoiser_normal=state.denoiser_normal + torch.where(act3, aov_normal, 0.0),
         prev_gbuffer=state.gbuffer,

@@ -1047,3 +1047,47 @@ def test_viewer_views_on_the_card_match_the_cpu(tmp_path):
         want = decode_png(ViewerServer(cpu)._image_png(view)).astype(int)
         assert got.shape == (32, 64, 3)
         assert np.abs(got - want).max() <= 1, view
+
+
+def test_pixel_dp_ranks_on_the_card_are_one_process(tmp_path):
+    """parallel/: 2 gloo ranks on the card (the default device: cuda:0 when
+    they share one card), pixel DP of the stress interior at 64x32 under
+    MIS, 2 samples, the gathered state bit-identical to one process on the
+    card; the ranks launch trace_coherent and trace_incoherent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
+    from hiprt_pt_tpu_torch.core import settings as ts
+    from hiprt_pt_tpu_torch.core.state import init_render_state
+    from hiprt_pt_tpu_torch.parallel import jobs
+    from hiprt_pt_tpu_torch.parallel.launch import launch
+    from hiprt_pt_tpu_torch.render.renderer import render_step
+
+    w, h = 64, 32
+    opts = ts.RenderOptions(bsdf_override=ts.BSDFOverride.LAMBERTIAN,
+                            do_dispersion=False, max_bounces_static=2)
+    settings = ts.RenderSettings(nb_bounces=2)
+    world = ts.WorldSettings(ambient_light_type=int(ts.AmbientLightType.NONE))
+    inputs = {}
+    for dev in ("cpu", "cuda"):
+        scene, cam = load_stress_scene(aspect=w / h, tri_scale=0.01,
+                                       with_textures=False, device=dev)
+        inputs[dev] = (scene, cam, build_bvh(scene.vertices.cpu().numpy(),
+                                             scene.triangles.cpu().numpy(), dev))
+    scene, cam, bvh = inputs["cuda"]
+    ref = render_step(opts, w, h, scene, bvh, init_render_state(w, h), cam,
+                      settings, world, n_samples=2)
+    run = dict(name="p", input="s", options=opts, settings=settings,
+               world=world, width=w, height=h, samples=2)
+    out = launch(jobs.render, 2, ({"runs": [run],
+                                   "inputs": {"s": inputs["cpu"]}},),
+                 backend="gloo", timeout=300)
+    rep = [o["p"] for o in out]
+    assert [r["device"] for r in rep] == (
+        ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+        else ["cuda:0", "cuda:0"])
+    assert rep[0]["digests"] == jobs.state_digests(ref)
+    for r in rep:
+        assert r["launches"]["trace_coherent"] > 0
+        assert r["launches"]["trace_incoherent"] > 0
