@@ -2,8 +2,6 @@
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 
@@ -34,17 +32,3 @@ def cuda_ms(fn, reps: int = 3):
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
 
-
-def elapsed_ms(fn, device, reps: int = 2) -> float:
-    """Mean ms of ``reps`` back-to-back calls of ``fn`` after a warm-up
-    call: between CUDA events on a CUDA ``device``, by the host's clock on
-    the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        with torch.cuda.device(device):
-            return cuda_ms(fn, reps)[0]
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) / reps * 1e3

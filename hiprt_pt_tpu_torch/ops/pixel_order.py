@@ -106,6 +106,11 @@ class PixelRange:
         """Whether ``flag`` holds anywhere in the image (a host sync)."""
         return bool(flag.any())
 
+    def count(self, flag: torch.Tensor) -> int:
+        """The number of pixels of the image where ``flag`` holds (a host
+        sync)."""
+        return int(flag.sum())
+
     def sum(self, count: torch.Tensor) -> torch.Tensor:
         """A count over the image from the range's own count."""
         return count

@@ -43,6 +43,7 @@ import torch
 
 from ..accel.build import MEGANODE_LEAF_TRIS
 from ..core import rng as rng_mod
+from ..utils import spans
 from .intersect import triangle_test
 from .pixel_order import PixelRange
 from .texture import apply_textures
@@ -418,55 +419,57 @@ def occluded_alpha(bvh, scene, o, d, rng_state, t_min=1e-4,
     ``shard`` (ops/pixel_order.py:PixelRange; the rays are its pixels') the
     check is the image's: a segment that one device would run draws for
     every ray, so a shard runs it, draws included, while any shard's rays
-    still search.
+    still search. The march is recorded as the span ``march``
+    (utils/spans.py).
     Returns (rng_state, occluded (N,) bool)."""
-    trace = traverse if trace is None else trace
-    n = o.shape[0]
-    dev = o.device
-    shard = shard or PixelRange.batch(n)
-    searching = (torch.ones((n,), dtype=torch.bool, device=dev)
-                 if active is None else active.to(torch.bool))
-    march_counts["calls"] += 1
-    _tally("rays", searching)
-    if prune:
-        searching = searching & (trace(bvh, o, d, t_min=t_min, t_max=t_max,
-                                       active=searching, any_hit=True).prim >= 0)
-    _tally("entered", searching)
-    occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
-    crossed = torch.zeros_like(occluded)
-    remaining = per_ray(t_max, n, dev)
-    cur_o = o
-    name = getattr(trace, "__name__", "trace")
-    for _ in range(max_segments):
-        if not shard.any(searching):
-            break
-        march_counts["segments"][name] = march_counts["segments"].get(name, 0) + 1
-        _tally("idle", ~searching.any())
-        rec = trace(bvh, cur_o, d, t_min=t_min, t_max=remaining,
-                    active=searching, any_hit=False)
-        hit = (rec.prim >= 0) & searching
-        # the hit's material and uv, its base-colour alpha applied
-        row = scene.tri_data[rec.prim.clamp_min(0).long()]
-        mat_id = row[:, 24].contiguous().view(torch.int32)
-        w = 1.0 - rec.u - rec.v
-        uv = torch.stack(
-            [row[:, 9] * w + row[:, 11] * rec.u + row[:, 13] * rec.v,
-             row[:, 10] * w + row[:, 12] * rec.u + row[:, 14] * rec.v], dim=-1)
-        mats = scene.materials.at_indices(mat_id)
-        if scene.textures is not None:
-            mats = apply_textures(scene.textures, mats, uv)
-        rng_state, u_a = rng_mod.next_float(rng_state)
-        opaque = hit & (u_a < mats.alpha_opacity)
-        occluded = occluded | opaque
-        # pass-through rays go on from just past the hit
-        passthrough = hit & ~opaque
-        crossed = crossed | passthrough
-        seg = torch.where(torch.isfinite(rec.t), rec.t, 0.0)
-        cur_o = torch.where(passthrough[:, None], cur_o + d * (seg + 1e-4)[:, None],
-                            cur_o)
-        remaining = torch.where(passthrough, remaining - seg - 1e-4, remaining)
-        searching = passthrough
-    _tally("passed", crossed)
+    with spans.span("march"):
+        trace = traverse if trace is None else trace
+        n = o.shape[0]
+        dev = o.device
+        shard = shard or PixelRange.batch(n)
+        searching = (torch.ones((n,), dtype=torch.bool, device=dev)
+                     if active is None else active.to(torch.bool))
+        march_counts["calls"] += 1
+        _tally("rays", searching)
+        if prune:
+            searching = searching & (trace(bvh, o, d, t_min=t_min, t_max=t_max,
+                                           active=searching, any_hit=True).prim >= 0)
+        _tally("entered", searching)
+        occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+        crossed = torch.zeros_like(occluded)
+        remaining = per_ray(t_max, n, dev)
+        cur_o = o
+        name = getattr(trace, "__name__", "trace")
+        for _ in range(max_segments):
+            if not shard.any(searching):
+                break
+            march_counts["segments"][name] = march_counts["segments"].get(name, 0) + 1
+            _tally("idle", ~searching.any())
+            rec = trace(bvh, cur_o, d, t_min=t_min, t_max=remaining,
+                        active=searching, any_hit=False)
+            hit = (rec.prim >= 0) & searching
+            # the hit's material and uv, its base-colour alpha applied
+            row = scene.tri_data[rec.prim.clamp_min(0).long()]
+            mat_id = row[:, 24].contiguous().view(torch.int32)
+            w = 1.0 - rec.u - rec.v
+            uv = torch.stack(
+                [row[:, 9] * w + row[:, 11] * rec.u + row[:, 13] * rec.v,
+                 row[:, 10] * w + row[:, 12] * rec.u + row[:, 14] * rec.v], dim=-1)
+            mats = scene.materials.at_indices(mat_id)
+            if scene.textures is not None:
+                mats = apply_textures(scene.textures, mats, uv)
+            rng_state, u_a = rng_mod.next_float(rng_state)
+            opaque = hit & (u_a < mats.alpha_opacity)
+            occluded = occluded | opaque
+            # pass-through rays go on from just past the hit
+            passthrough = hit & ~opaque
+            crossed = crossed | passthrough
+            seg = torch.where(torch.isfinite(rec.t), rec.t, 0.0)
+            cur_o = torch.where(passthrough[:, None], cur_o + d * (seg + 1e-4)[:, None],
+                                cur_o)
+            remaining = torch.where(passthrough, remaining - seg - 1e-4, remaining)
+            searching = passthrough
+        _tally("passed", crossed)
     return rng_state, occluded
 
 

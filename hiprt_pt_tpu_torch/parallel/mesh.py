@@ -228,6 +228,10 @@ class Shard(PixelRange):
         own = flag.any().to(torch.int32).reshape(1)
         return bool(all_reduce(own, self.mesh, dist.ReduceOp.MAX).item())
 
+    def count(self, flag: torch.Tensor) -> int:
+        own = flag.sum().reshape(1)
+        return int(all_reduce(own, self.mesh).item())
+
     def sum(self, count: torch.Tensor) -> torch.Tensor:
         return all_reduce(count, self.mesh)
 

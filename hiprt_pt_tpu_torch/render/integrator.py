@@ -33,8 +33,19 @@ pass draws jx, jy; each bounce draws u_lam (with ``do_dispersion``),
 u_alpha, then the NEE or RIS draws (the march's draws after the light's and
 the BSDF eval), the envmap sample's draws, then the BSDF sample's draws
 (the override's pair, or the principled BSDF's u_sel, u1, u2, u3), then
-u_rr. The host syncs once per bounce, to skip bounces with no live ray, and
-in the march once per segment.
+u_rr. The host syncs once per bounce, on whether any path is alive (a
+bounce with none is skipped; while spans record, on the count of live
+paths), and in the march once per segment.
+
+The frame's work is recorded as spans (utils/spans.py): ``camera``, and
+for each bounce that runs ``bounce`` with ``bounce/material`` (material
+fetch, textures, dispersion, the interior stack and the relative IOR),
+``bounce/direct`` (NEE or RIS with its shadow rays), ``bounce/bsdf`` (the
+BSDF sample, the stack update, Russian roulette), ``bounce/trace`` (the
+bounce ray's traversal) and ``bounce/hit`` (hit interpolation, emission
+and envmap MIS, the next vertex); the counters ``live`` (the image's
+paths alive at a bounce's start) and ``lanes`` (the image's pixels) of
+each bounce.
 
 A render step may hold only a range of the image's pixels (``shard``, an
 ops/pixel_order.py:PixelRange of whole tiles: parallel/mesh.py's pixel
@@ -78,6 +89,7 @@ from ..ops.sampling import balance_heuristic
 from ..ops.texture import apply_normal_map, apply_textures
 from ..ops.tonemap import luminance
 from ..ops.traverse import shadow_blocked
+from ..utils import spans
 
 
 def _nee_enabled(options: RenderOptions) -> bool:
@@ -137,41 +149,42 @@ def camera_rays_pass(scene, bvh, camera, settings: RenderSettings, state,
     """Primary-ray pass filling the G-buffer, for the pixels of ``shard``
     (default: the whole image).
     Returns (rng_state, GBuffer, pixel_active)."""
-    dev = rng_state.device
-    shard = shard or PixelRange.whole(width, height)
-    rng_state, jx = rng_mod.next_float(rng_state)
-    rng_state, jy = rng_mod.next_float(rng_state)
-    jitter = torch.stack([jx, jy], dim=-1)
-    # tile-major order → each 128-ray packet is one 16x8 tile
-    px, py = shard.coords(dev)
-    o, d = generate_camera_rays(camera, width, height, jitter, px, py)
+    with spans.span("camera"):
+        dev = rng_state.device
+        shard = shard or PixelRange.whole(width, height)
+        rng_state, jx = rng_mod.next_float(rng_state)
+        rng_state, jy = rng_mod.next_float(rng_state)
+        jitter = torch.stack([jx, jy], dim=-1)
+        # tile-major order → each 128-ray packet is one 16x8 tile
+        px, py = shard.coords(dev)
+        o, d = generate_camera_rays(camera, width, height, jitter, px, py)
 
-    active = torch.ones((shard.size,), dtype=torch.bool, device=dev)
-    if settings.render_low_resolution:
-        sc = settings.low_resolution_scale
-        active = ((px % sc) == 0) & ((py % sc) == 0)
-    if settings.enable_adaptive_sampling:
-        active = active & ~state.pixel_converged
+        active = torch.ones((shard.size,), dtype=torch.bool, device=dev)
+        if settings.render_low_resolution:
+            sc = settings.low_resolution_scale
+            active = ((px % sc) == 0) & ((py % sc) == 0)
+        if settings.enable_adaptive_sampling:
+            active = active & ~state.pixel_converged
 
-    rec = _tracer(bvh, True, options.use_pallas_traversal)(
-        bvh, o, d, t_min=0.0, active=active)
-    hit = rec.prim >= 0
-    ns, ng, uv, mat_id, tangent = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
-    ns = _normal_mapped(scene, mat_id, uv, ns, tangent)
-    pos = o + d * torch.where(torch.isfinite(rec.t), rec.t, 0.0)[..., None]
-    backface = (ns * d).sum(dim=-1) > 0.0
-    gbuf = GBuffer(
-        position=pos,
-        shading_normal=torch.where(hit[..., None], _face_forward(ns, d), 0.0),
-        geometric_normal=torch.where(hit[..., None], _face_forward(ng, d), 0.0),
-        view_direction=-d,
-        material_id=torch.where(hit, mat_id, -1),
-        prim_index=rec.prim,
-        uv=uv,
-        t=rec.t,
-        ray_dir=d,
-        backface=backface,
-    )
+        rec = _tracer(bvh, True, options.use_pallas_traversal)(
+            bvh, o, d, t_min=0.0, active=active)
+        hit = rec.prim >= 0
+        ns, ng, uv, mat_id, tangent = _interpolate_hit(scene, rec.prim, rec.u, rec.v, d)
+        ns = _normal_mapped(scene, mat_id, uv, ns, tangent)
+        pos = o + d * torch.where(torch.isfinite(rec.t), rec.t, 0.0)[..., None]
+        backface = (ns * d).sum(dim=-1) > 0.0
+        gbuf = GBuffer(
+            position=pos,
+            shading_normal=torch.where(hit[..., None], _face_forward(ns, d), 0.0),
+            geometric_normal=torch.where(hit[..., None], _face_forward(ng, d), 0.0),
+            view_direction=-d,
+            material_id=torch.where(hit, mat_id, -1),
+            prim_index=rec.prim,
+            uv=uv,
+            t=rec.t,
+            ray_dir=d,
+            backface=backface,
+        )
     return rng_state, gbuf, active
 
 
@@ -338,192 +351,225 @@ def render_sample(options: RenderOptions, scene, bvh, world: WorldSettings,
     n_bounces = min(options.max_bounces_static, int(settings.nb_bounces))
     for bounce in range(n_bounces):
         # the one host sync of a bounce: a bounce with no live ray is skipped
-        # and leaves the RNG stream untouched, as in the JAX package
-        if not shard.any(active):
+        # and leaves the RNG stream untouched, as in the JAX package; while
+        # spans record, the sync reads the live paths' count for the counter
+        if spans.enabled():
+            live = shard.count(active)
+            if not live:
+                break
+            spans.count("live", live)
+            spans.count("lanes", shard.num_pixels)
+        elif not shard.any(active):
             break
         if collect_bounce_stats:
             alive[bounce] = active.sum()
-        mats = mats_all.at_indices(mat_id).make_safe()
-        if scene.textures is not None:
-            mats = apply_textures(scene.textures, mats, uv)
+        with spans.span("bounce"):
+            with spans.span("bounce/material"):
+                mats = mats_all.at_indices(mat_id).make_safe()
+                if scene.textures is not None:
+                    mats = apply_textures(scene.textures, mats, uv)
 
-        # --- dispersion: a hero wavelength is drawn on first contact with a
-        # dispersive dielectric; its RGB weight enters the throughput once
-        # and its IOR replaces the material's from then on ---
-        if options.do_dispersion:
-            dispersive = ((mats.dispersion_scale > 0.0)
-                          & (mats.specular_transmission > 0.0))
-            rng_state, u_lam = rng_mod.next_float(rng_state)
-            need_sample = dispersive & (wavelength <= 0.0) & active
-            wavelength = torch.where(need_sample, sample_wavelength(u_lam),
-                                     wavelength)
-            throughput = torch.where(
-                need_sample[..., None],
-                throughput * wavelength_rgb_weight(wavelength), throughput)
-            eta_mat = torch.where(
-                dispersive & (wavelength > 0.0),
-                ior_at_wavelength(mats.ior, mats.dispersion_abbe_number,
-                                  mats.dispersion_scale, wavelength),
-                mats.ior)
-        else:
-            eta_mat = mats.ior
+                # --- dispersion: a hero wavelength is drawn on first contact
+                # with a dispersive dielectric; its RGB weight enters the
+                # throughput once and its IOR replaces the material's from
+                # then on ---
+                if options.do_dispersion:
+                    dispersive = ((mats.dispersion_scale > 0.0)
+                                  & (mats.specular_transmission > 0.0))
+                    rng_state, u_lam = rng_mod.next_float(rng_state)
+                    need_sample = dispersive & (wavelength <= 0.0) & active
+                    wavelength = torch.where(need_sample, sample_wavelength(u_lam),
+                                             wavelength)
+                    throughput = torch.where(
+                        need_sample[..., None],
+                        throughput * wavelength_rgb_weight(wavelength), throughput)
+                    eta_mat = torch.where(
+                        dispersive & (wavelength > 0.0),
+                        ior_at_wavelength(mats.ior, mats.dispersion_abbe_number,
+                                          mats.dispersion_scale, wavelength),
+                        mats.ior)
+                else:
+                    eta_mat = mats.ior
 
-        rng_state, u_alpha = rng_mod.next_float(rng_state)
-        alpha_skip = active & (u_alpha >= mats.alpha_opacity)
-        if not settings.do_alpha_testing:
-            alpha_skip = torch.zeros_like(active)
+                rng_state, u_alpha = rng_mod.next_float(rng_state)
+                alpha_skip = active & (u_alpha >= mats.alpha_opacity)
+                if not settings.do_alpha_testing:
+                    alpha_skip = torch.zeros_like(active)
 
-        # --- nested dielectrics: true vs false interfaces, relative IOR
-        # (reference: NestedDielectrics.h). WITH_PRIORITIES: Schmidt 2002
-        # priorities; AUTOMATIC (RT Gems 2019, InteriorStackImpl<
-        # ISS_AUTOMATIC>): every dielectric ranks 0 and parity decides, so
-        # entering a material already on the stack is a false interface ---
-        is_trans = mats.specular_transmission > 0.0
-        top_pri = nd.top_priority(stack_pri)
-        top_mat = nd.top_material(stack_mat, stack_pri)
-        if options.interior_stack_strategy == InteriorStackStrategy.AUTOMATIC:
-            m_pri = torch.zeros_like(mats.dielectric_priority, dtype=torch.int32)
-            false_enter = (is_trans & entering
-                           & nd.contains(stack_mat, stack_pri, mat_id))
-        else:
-            m_pri = mats.dielectric_priority.to(torch.int32)
-            false_enter = is_trans & entering & (m_pri < top_pri)
-        false_exit = is_trans & ~entering & (top_mat != mat_id) & (top_pri >= 0)
-        false_interface = (false_enter | false_exit) & active
-        alpha_skip = alpha_skip | false_interface
+                # --- nested dielectrics: true vs false interfaces, relative
+                # IOR (reference: NestedDielectrics.h). WITH_PRIORITIES:
+                # Schmidt 2002 priorities; AUTOMATIC (RT Gems 2019,
+                # InteriorStackImpl<ISS_AUTOMATIC>): every dielectric ranks 0
+                # and parity decides, so entering a material already on the
+                # stack is a false interface ---
+                is_trans = mats.specular_transmission > 0.0
+                top_pri = nd.top_priority(stack_pri)
+                top_mat = nd.top_material(stack_mat, stack_pri)
+                if options.interior_stack_strategy == InteriorStackStrategy.AUTOMATIC:
+                    m_pri = torch.zeros_like(mats.dielectric_priority,
+                                             dtype=torch.int32)
+                    false_enter = (is_trans & entering
+                                   & nd.contains(stack_mat, stack_pri, mat_id))
+                else:
+                    m_pri = mats.dielectric_priority.to(torch.int32)
+                    false_enter = is_trans & entering & (m_pri < top_pri)
+                false_exit = (is_trans & ~entering & (top_mat != mat_id)
+                              & (top_pri >= 0))
+                false_interface = (false_enter | false_exit) & active
+                alpha_skip = alpha_skip | false_interface
 
-        def ior_of(ids):
-            return torch.where(ids >= 0, mats_all.ior[ids.clamp_min(0).long()], 1.0)
+                def ior_of(ids):
+                    return torch.where(ids >= 0,
+                                       mats_all.ior[ids.clamp_min(0).long()], 1.0)
 
-        n_outside_enter = ior_of(top_mat)
-        excl_mat, excl_pri = nd.top_excluding(stack_mat, stack_pri, mat_id)
-        n_outside_exit = torch.where(excl_pri >= 0, ior_of(excl_mat), 1.0)
+                n_outside_enter = ior_of(top_mat)
+                excl_mat, excl_pri = nd.top_excluding(stack_mat, stack_pri, mat_id)
+                n_outside_exit = torch.where(excl_pri >= 0, ior_of(excl_mat), 1.0)
+                eta_c = eta_mat.clamp_min(1.0 + 1e-3)
+                eta_rel = torch.where(entering, eta_c / n_outside_enter,
+                                      n_outside_exit / eta_c).clamp_min(1e-3)
+                nee_active = active & ~alpha_skip
+                if ((direct0 is not None and bounce == 0)
+                        or options.white_furnace_mode):
+                    nee_active = torch.zeros_like(nee_active)
+            # --- NEE ---
+            with spans.span("bounce/direct"):
+                rng_state, direct, n_shadow = _direct_lighting(
+                    options, scene, bvh, world, settings, mats, p, ns, ng, wo,
+                    rng_state, nee_active, eta_rel, shadow_coherent=(bounce == 0),
+                    shard=shard)
+                if direct0 is not None and bounce == 0:
+                    direct = direct0
+                radiance = radiance + torch.where(active[..., None],
+                                                  throughput * direct, 0.0)
 
-        # --- NEE ---
-        eta_c = eta_mat.clamp_min(1.0 + 1e-3)
-        eta_rel = torch.where(entering, eta_c / n_outside_enter,
-                              n_outside_exit / eta_c).clamp_min(1e-3)
-        nee_active = active & ~alpha_skip
-        if (direct0 is not None and bounce == 0) or options.white_furnace_mode:
-            nee_active = torch.zeros_like(nee_active)
-        rng_state, direct, n_shadow = _direct_lighting(
-            options, scene, bvh, world, settings, mats, p, ns, ng, wo,
-            rng_state, nee_active, eta_rel, shadow_coherent=(bounce == 0),
-            shard=shard)
-        if direct0 is not None and bounce == 0:
-            direct = direct0
-        radiance = radiance + torch.where(active[..., None], throughput * direct, 0.0)
+            # --- BSDF sample + bounce ray ---
+            with spans.span("bounce/bsdf"):
+                rng_state, wi, f, bsdf_pdf, s_aux = bsdf_sample(
+                    options, mats, ns, wo, rng_state, {"eta_rel": eta_rel})
+                wi = torch.where(alpha_skip[..., None], -wo, wi)
+                cos_i = (ns * wi).sum(dim=-1)
+                valid_sample = active & ((bsdf_pdf > 1e-9) | alpha_skip)
+                factor = torch.where(alpha_skip, 1.0,
+                                     cos_i.abs() / bsdf_pdf.clamp_min(1e-12))
+                new_throughput = throughput * torch.where(
+                    valid_sample[..., None],
+                    torch.where(alpha_skip[..., None], 1.0, f) * factor[..., None],
+                    0.0)
 
-        # --- BSDF sample + bounce ray ---
-        rng_state, wi, f, bsdf_pdf, s_aux = bsdf_sample(
-            options, mats, ns, wo, rng_state, {"eta_rel": eta_rel})
-        wi = torch.where(alpha_skip[..., None], -wo, wi)
-        cos_i = (ns * wi).sum(dim=-1)
-        valid_sample = active & ((bsdf_pdf > 1e-9) | alpha_skip)
-        factor = torch.where(alpha_skip, 1.0,
-                             cos_i.abs() / bsdf_pdf.clamp_min(1e-12))
-        new_throughput = throughput * torch.where(
-            valid_sample[..., None],
-            torch.where(alpha_skip[..., None], 1.0, f) * factor[..., None],
-            0.0)
+                # --- interior stack update + Beer-Lambert medium from the new
+                # top ---
+                refracted = s_aux["refracted"] & ~alpha_skip
+                not_thin = mats.thin_walled < 0.5
+                crossed = (valid_sample & is_trans & not_thin
+                           & (refracted | false_interface))
+                stack_mat, stack_pri = nd.push(stack_mat, stack_pri, mat_id, m_pri,
+                                               crossed & entering)
+                stack_mat, stack_pri = nd.remove(stack_mat, stack_pri, mat_id,
+                                                 crossed & ~entering)
+                new_top = nd.top_material(stack_mat, stack_pri)
+                med = mats_all.fields_at(
+                    new_top.clamp_min(0),
+                    ("absorption_color", "absorption_at_distance"))
+                absorb = med["absorption_color"].clamp(1.0 / 512.0, 1.0)
+                sigma_top = (-torch.log(absorb)
+                             / med["absorption_at_distance"].clamp_min(1e-4)[..., None])
+                medium_sigma = torch.where((new_top >= 0)[..., None], sigma_top,
+                                           0.0)
 
-        # --- interior stack update + Beer-Lambert medium from the new top ---
-        refracted = s_aux["refracted"] & ~alpha_skip
-        not_thin = mats.thin_walled < 0.5
-        crossed = valid_sample & is_trans & not_thin & (refracted | false_interface)
-        stack_mat, stack_pri = nd.push(stack_mat, stack_pri, mat_id, m_pri,
-                                       crossed & entering)
-        stack_mat, stack_pri = nd.remove(stack_mat, stack_pri, mat_id,
-                                         crossed & ~entering)
-        new_top = nd.top_material(stack_mat, stack_pri)
-        med = mats_all.fields_at(new_top.clamp_min(0),
-                                 ("absorption_color", "absorption_at_distance"))
-        sigma_top = -torch.log(med["absorption_color"].clamp(1.0 / 512.0, 1.0)) \
-            / med["absorption_at_distance"].clamp_min(1e-4)[..., None]
-        medium_sigma = torch.where((new_top >= 0)[..., None], sigma_top, 0.0)
+                # --- russian roulette (survive probability from the
+                # pre-attenuation throughput, or the Arnold-2014 attenuation
+                # ratio) ---
+                rng_state, u_rr = rng_mod.next_float(rng_state)
+                if settings.do_russian_roulette and bounce >= settings.rr_min_depth:
+                    tp_max = throughput.amax(dim=-1)
+                    if settings.rr_method == int(RussianRouletteMethod.ARNOLD):
+                        survive_p = torch.sqrt(new_throughput.amax(dim=-1)
+                                               / tp_max.clamp_min(1e-12))
+                    else:
+                        survive_p = tp_max
+                    survive_p = survive_p.clamp_max(1.0)
+                    killed = u_rr >= survive_p
+                    increase = 1.0 / survive_p.clamp_min(1e-12)
+                    if settings.rr_throughput_clamp > 0.0:
+                        increase = increase.clamp_max(
+                            settings.rr_throughput_clamp)
+                    new_throughput = torch.where(
+                        (~killed)[..., None], new_throughput * increase[..., None],
+                        new_throughput)
+                    valid_sample = valid_sample & ~killed
 
-        # --- russian roulette (survive probability from the pre-attenuation
-        # throughput, or the Arnold-2014 attenuation ratio) ---
-        rng_state, u_rr = rng_mod.next_float(rng_state)
-        if settings.do_russian_roulette and bounce >= settings.rr_min_depth:
-            tp_max = throughput.amax(dim=-1)
-            if settings.rr_method == int(RussianRouletteMethod.ARNOLD):
-                survive_p = torch.sqrt(new_throughput.amax(dim=-1)
-                                       / tp_max.clamp_min(1e-12))
-            else:
-                survive_p = tp_max
-            survive_p = survive_p.clamp_max(1.0)
-            killed = u_rr >= survive_p
-            increase = 1.0 / survive_p.clamp_min(1e-12)
-            if settings.rr_throughput_clamp > 0.0:
-                increase = increase.clamp_max(settings.rr_throughput_clamp)
-            new_throughput = torch.where((~killed)[..., None],
-                                         new_throughput * increase[..., None],
-                                         new_throughput)
-            valid_sample = valid_sample & ~killed
+            # --- trace the bounce ray ---
+            with spans.span("bounce/trace"):
+                o_next = offset_ray_origin(p, ng, wi)
+                rec = _tracer(bvh, False, options.use_pallas_traversal)(
+                    bvh, o_next, wi, t_min=0.0, active=valid_sample)
+            with spans.span("bounce/hit"):
+                hit = rec.prim >= 0
+                ns2, ng2, uv2, mat_id2, tan2 = _interpolate_hit(
+                    scene, rec.prim, rec.u, rec.v, wi)
+                t_b = rec.t
 
-        # --- trace the bounce ray ---
-        o_next = offset_ray_origin(p, ng, wi)
-        rec = _tracer(bvh, False, options.use_pallas_traversal)(
-            bvh, o_next, wi, t_min=0.0, active=valid_sample)
-        hit = rec.prim >= 0
-        ns2, ng2, uv2, mat_id2, tan2 = _interpolate_hit(scene, rec.prim, rec.u,
-                                                        rec.v, wi)
-        t_b = rec.t
+                # Beer-Lambert absorption along the segment inside a medium
+                seg_t = torch.where(hit, t_b, 0.0)
+                new_throughput = new_throughput * torch.exp(
+                    -medium_sigma * seg_t[..., None])
 
-        # Beer-Lambert absorption along the segment inside a medium
-        seg_t = torch.where(hit, t_b, 0.0)
-        new_throughput = new_throughput * torch.exp(-medium_sigma * seg_t[..., None])
+                # BSDF ray hits an emitter → MIS-weighted emission
+                light_pdf, is_em = emissive_pdf_of_direction(
+                    scene, o_next, rec.prim, t_b, wi)
+                if options.direct_light_sampling == LightSamplingStrategy.MIS:
+                    w_em = balance_heuristic(bsdf_pdf, light_pdf)
+                elif _nee_enabled(options):
+                    # pure NEE, RIS and ReSTIR: emitter hits are already
+                    # counted by the light samples or the candidate pools
+                    w_em = torch.zeros_like(bsdf_pdf)
+                else:
+                    w_em = torch.ones_like(bsdf_pdf)
+                # a pass-through ray skipped NEE at its vertex → full emitter
+                # weight
+                w_em = torch.where(alpha_skip, 1.0, w_em)
+                em = mats_all.fields_at(
+                    scene.material_ids[rec.prim.clamp_min(0).long()],
+                    ("emission", "emission_strength"))
+                em_c = (em["emission"] * em["emission_strength"][..., None]
+                        * em_scale * w_em[..., None] * new_throughput)
+                em_c = _clamp_contribution(em_c,
+                                           settings.indirect_contribution_clamp)
+                radiance = radiance + torch.where(
+                    (valid_sample & hit & is_em)[..., None], em_c, 0.0)
 
-        # BSDF ray hits an emitter → MIS-weighted emission
-        light_pdf, is_em = emissive_pdf_of_direction(scene, o_next, rec.prim,
-                                                     t_b, wi)
-        if options.direct_light_sampling == LightSamplingStrategy.MIS:
-            w_em = balance_heuristic(bsdf_pdf, light_pdf)
-        elif _nee_enabled(options):
-            # pure NEE, RIS and ReSTIR: emitter hits are already counted by
-            # the light samples or the candidate pools
-            w_em = torch.zeros_like(bsdf_pdf)
-        else:
-            w_em = torch.ones_like(bsdf_pdf)
-        # a pass-through ray skipped NEE at its vertex → full emitter weight
-        w_em = torch.where(alpha_skip, 1.0, w_em)
-        em = mats_all.fields_at(
-            scene.material_ids[rec.prim.clamp_min(0).long()],
-            ("emission", "emission_strength"))
-        em_c = (em["emission"] * em["emission_strength"][..., None]
-                * em_scale * w_em[..., None] * new_throughput)
-        em_c = _clamp_contribution(em_c, settings.indirect_contribution_clamp)
-        radiance = radiance + torch.where(
-            (valid_sample & hit & is_em)[..., None], em_c, 0.0)
+                # miss → ambient, or the envmap MIS-weighted against its own
+                # sampling
+                env_c = eval_envmap(world, scene.envmap, wi)
+                if (env_mis and world.ambient_light_type
+                        == int(AmbientLightType.ENVMAP)):
+                    w_env = balance_heuristic(
+                        bsdf_pdf, envmap_pdf_of_direction(world, scene.envmap, wi))
+                    env_c = env_c * w_env[..., None]
+                env_c = env_c * new_throughput
+                env_c = _clamp_contribution(env_c,
+                                            settings.envmap_contribution_clamp)
+                radiance = radiance + torch.where((valid_sample & ~hit)[..., None],
+                                                  env_c, 0.0)
 
-        # miss → ambient, or the envmap MIS-weighted against its own
-        # sampling
-        env_c = eval_envmap(world, scene.envmap, wi)
-        if env_mis and world.ambient_light_type == int(AmbientLightType.ENVMAP):
-            w_env = balance_heuristic(
-                bsdf_pdf, envmap_pdf_of_direction(world, scene.envmap, wi))
-            env_c = env_c * w_env[..., None]
-        env_c = env_c * new_throughput
-        env_c = _clamp_contribution(env_c, settings.envmap_contribution_clamp)
-        radiance = radiance + torch.where((valid_sample & ~hit)[..., None], env_c, 0.0)
-
-        # --- next vertex ---
-        ns2 = _normal_mapped(scene, mat_id2, uv2, ns2, tan2)
-        p2 = o_next + wi * torch.where(torch.isfinite(t_b), t_b, 0.0)[..., None]
-        next_active = valid_sample & hit
-        na = next_active[..., None]
-        entering2 = (ns2 * wi).sum(dim=-1) < 0.0
-        rays = rays + n_shadow + valid_sample.sum()
-        throughput = torch.where(na, new_throughput, throughput)
-        p = torch.where(na, p2, p)
-        ns = torch.where(na, _face_forward(ns2, wi), ns)
-        ng = torch.where(na, _face_forward(ng2, wi), ng)
-        wo = torch.where(na, -wi, wo)
-        mat_id = torch.where(next_active, mat_id2, mat_id)
-        uv = torch.where(na, uv2, uv)
-        entering = torch.where(next_active, entering2, entering)
-        active = next_active
+                # --- next vertex ---
+                ns2 = _normal_mapped(scene, mat_id2, uv2, ns2, tan2)
+                p2 = o_next + wi * torch.where(torch.isfinite(t_b), t_b,
+                                               0.0)[..., None]
+                next_active = valid_sample & hit
+                na = next_active[..., None]
+                entering2 = (ns2 * wi).sum(dim=-1) < 0.0
+                rays = rays + n_shadow + valid_sample.sum()
+                throughput = torch.where(na, new_throughput, throughput)
+                p = torch.where(na, p2, p)
+                ns = torch.where(na, _face_forward(ns2, wi), ns)
+                ng = torch.where(na, _face_forward(ng2, wi), ng)
+                wo = torch.where(na, -wi, wo)
+                mat_id = torch.where(next_active, mat_id2, mat_id)
+                uv = torch.where(na, uv2, uv)
+                entering = torch.where(next_active, entering2, entering)
+                active = next_active
 
     # NaN / negative scrub: a bad sample contributes black
     bad = (~torch.isfinite(radiance) | (radiance < 0.0)).any(dim=-1)

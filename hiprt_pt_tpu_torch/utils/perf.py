@@ -1,11 +1,13 @@
 """Windowed streaming performance metrics, mirroring
 ``hiprt_pt_tpu.utils.perf`` (reference: PerformanceMetricsComputer,
 src/UI/PerformanceMetricsComputer.h:14-60): per named metric, the average,
-variance, standard deviation, minimum and maximum over a sliding window."""
+variance, standard deviation, median, minimum and maximum over a sliding
+window."""
 
 from __future__ import annotations
 
 import math
+import statistics
 from collections import deque
 
 
@@ -34,6 +36,10 @@ class PerformanceMetrics:
 
     def get_stddev(self, name: str) -> float:
         return math.sqrt(self.get_variance(name))
+
+    def get_median(self, name: str) -> float:
+        s = self._series.get(name)
+        return statistics.median(s) if s else 0.0
 
     def get_min(self, name: str) -> float:
         s = self._series.get(name)

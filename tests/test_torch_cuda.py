@@ -1091,3 +1091,61 @@ def test_pixel_dp_ranks_on_the_card_are_one_process(tmp_path):
     for r in rep:
         assert r["launches"]["trace_coherent"] > 0
         assert r["launches"]["trace_incoherent"] > 0
+
+
+def test_spans_keep_the_syncs_and_put_nothing_in_the_trace(gpu_envmap):
+    """A frame with spans on makes the same synchronising runtime calls as
+    with spans off, and at most one launch more a bounce (the live count's
+    cast where spans off ask only whether any path lives); its trace holds
+    no user annotation and no span name; its spans resolve to stream
+    milliseconds."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+    from hiprt_pt_tpu_torch.utils import spans
+
+    scene, cam, bvh, (opts, settings, world) = gpu_envmap
+    r = Renderer(scene, cam, 128, 64, options=opts, settings=settings,
+                 world=world, bvh=bvh, seed=42)
+
+    def traced(on):
+        spans.enable(on)
+        try:
+            r.step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                r.step()
+                torch.cuda.synchronize()
+        finally:
+            spans.enable(True)
+        return list(prof.profiler.kineto_results.events())
+
+    def calls(events, names):
+        return Counter(e.name() for e in events if e.name() in names)
+
+    spans.reset()
+    on = traced(True)
+    spans.flush()
+    recs = spans.records()
+    off = traced(False)
+    assert calls(on, spans.SYNCS) == calls(off, spans.SYNCS)
+    assert sum(calls(on, spans.SYNCS).values()) >= settings.nb_bounces
+    bounces = sum(1 for rec in recs if rec.name == "bounce") // 2
+    extra = (sum(calls(on, spans.LAUNCHES).values())
+             - sum(calls(off, spans.LAUNCHES).values()))
+    assert 0 <= extra <= bounces, (extra, bounces)
+    names = {rec.name for rec in recs}
+    assert {"step", "camera", "bounce", "bounce/direct", "accumulate"} <= names
+    for e in on:
+        annotation = getattr(e, "is_user_annotation", None)
+        assert annotation is None or not annotation(), e.name()
+        assert e.name() not in names
+    steps = [rec for rec in recs if rec.name == "step"]
+    assert len(steps) == 2
+    for rec in recs:
+        assert rec.stream_ms is not None and rec.stream_ms >= 0.0
+        assert rec.self_ms is not None and rec.self_ms > -1e-3
+    assert all(rec.stream_ms > 0.0 for rec in steps)
