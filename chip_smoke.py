@@ -6,15 +6,28 @@
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
-                source: the five traversal kernels and the two probes), the
-                seven earlier kernel versions of previous_kernels/ (outside
-                the package, built only to be timed beside the versions
-                that replaced them) and the BVH build library (g++); print
-                what ptxas says of every kernel (a spill in trace_coherent,
-                trace_incoherent, trace_meganode, trace_stream8 or
-                dg_probe_kernel fails the phase), and the registers per
+                source: the five traversal kernels, the two probes and the
+                emissive sweep), the seven earlier kernel versions of
+                previous_kernels/ (outside the package, built only to be
+                timed beside the versions that replaced them) and the BVH
+                build library (g++); print what ptxas says of every kernel
+                (a spill in trace_coherent, trace_incoherent,
+                trace_meganode, trace_stream8 or dg_probe_kernel fails the
+                phase), and the registers per
                 thread, local and shared memory and resident blocks per SM
-                of the seven redesigned kernels in both versions.
+                of the seven redesigned kernels in both versions, and of
+                emissive_sweep_kernel (a spill in it fails the phase too).
+  2b. sweep   — the dense emissive sweep (csrc/emissive_sweep.cu) against
+                its plain version on the stress interior's 240 emitters at
+                2,073,600 and 518,400 rays (the 1080p wavefront, a pixel-DP
+                rank's quarter): t and slot equal on every lane, one launch a
+                call; the kernel's and the plain version's ms and the bound
+                (a triangle test a pair at 67 TFLOP/s, or 37 B a ray at
+                3.35 TB/s). These launches are the phase's own: the kernels
+                line counts the main path's, from the slices (5.), the cli
+                (7.), the viewer (7b.) and the ranks (10.), whose RIS and
+                ReSTIR frames must launch it once a bounce, and ReSTIR
+                once more (sweeps_per_frame).
   Then, for each of the first seven paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
@@ -92,13 +105,14 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 4 bounces, 4 samples in frames of 2 at 1920x1080, a PNG, an
                 HDR and a checkpoint): e. main(argv) in this process with
                 the launch counts reset just before and read just after,
-                trace_coherent and trace_incoherent held against
-                launches_per_frame for each sample (plus the march's
-                segments), ms/frame and spp/s from Renderer.metrics, the
-                seconds of load, BVH, render, denoise and the files, peak
-                device memory; d. à-trous with and without the variance
-                maps and the CNN on its 1080p AOVs, card against CPU, with
-                ms between CUDA events and host launches a call; a. the
+                trace_coherent, trace_incoherent and the emissive sweep
+                held against frame_launches for each sample (plus the
+                march's segments), ms/frame and spp/s from
+                Renderer.metrics, the seconds of load, BVH, render,
+                denoise and the files, peak device memory; d. à-trous
+                with and without the variance maps and the CNN on its
+                1080p AOVs, card against CPU, with ms between CUDA events
+                and host launches a call; a. the
                 same command as a subprocess (exit 0, the PNG decodes to
                 1920x1080x3); c. the command at 256x144 and 2 samples on
                 the card and with --cpu (a second subprocess, beside the
@@ -122,7 +136,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 option edits, the presets fastest (RIS at 960x536) and
                 high_quality (ReSTIR DI), whose renderers keep every edit,
                 /bake and /animate polled to done, stop() ending both
-                threads; trace_coherent and trace_incoherent must launch.
+                threads; trace_coherent, trace_incoherent and (under the
+                presets) the emissive sweep must launch.
   8. probes   — the round-5 gather probes (hiprt_pt_tpu_torch/probes/
                 r5probe2.py), a path with no frame: its entry point main()
                 at the TPU probe's shapes with the launch counts reset just
@@ -163,7 +178,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 G-buffer from the third), bit-identical; d. a camera orbit
                 of the Cornell path at 256x144 split over the ranks, its
                 PNGs byte-identical. The ranks' launches count in the
-                kernels line.
+                kernels line; in a. and b. each rank's emissive sweeps are
+                held to its samples x sweeps_per_frame.
 The lines before the last hold one row per (kernel, ray kind) and the
 kernels' JSON summary (each kernel's time on the 1080p rays it serves on
 its path, or on its probe's reference configuration, its plain version's,
@@ -292,6 +308,17 @@ ACTIVE_BYTES, TMAX_BYTES, HIT_BYTES, RAY_BYTES = 1, 4, 16, 28
 SLAB_OPS, TRI_OPS = 25, 53
 # the slice's frames that launch counts cover: a warm-up and 4 timed
 SLICE_FRAMES = 5
+# the dense emissive sweep (csrc/emissive_sweep.cu): the ray counts it is
+# timed at (the 1080p wavefront, and a pixel-DP rank's quarter of it) over
+# the stress interior's 240 emitters; its bound counts a triangle test
+# (TRI_OPS) a (ray, emitter) pair and, a ray, o and d and the active flag
+# in and t and the int64 slot out; the launches behind a timing's warm-up
+SWEEP_RAYS = (2_073_600, 518_400)
+SWEEP_RAY_BYTES = 12 + 12 + 1 + 4 + 8
+SWEEP_REPS = 20
+SWEEP_SOURCE = "hiprt_pt_tpu_torch/csrc/emissive_sweep.cu"
+SWEEP_REPLACES = ("none: the JAX package's fused jnp sweep, "
+                  "hiprt_pt_tpu/lights/light_sampling.py:199")
 # launches behind the warm-up in one timing of a traversal kernel (several
 # take a third of a millisecond a launch)
 KERNEL_REPS = 10
@@ -442,7 +469,7 @@ def phase_build():
     check_no_spill(cuda_build.build_log,
                    ("trace_coherent_kernel", "trace_incoherent_kernel",
                     "trace_meganode_kernel", "trace_stream8_kernel",
-                    "dg_probe_kernel"))
+                    "dg_probe_kernel", "emissive_sweep_kernel"))
     log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
         f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
         f"library {t2 - t1:.2f} s")
@@ -479,6 +506,14 @@ def phase_build():
                     f"thread, {local} bytes of local memory per thread, "
                     f"{shared} bytes of shared memory per block, {blocks} "
                     f"resident blocks per SM")
+    from hiprt_pt_tpu_torch.ops import cuda_sweep
+
+    info["emissive_sweep_kernel"] = {"new": {"closest": tuple(
+        cuda_sweep.kernel_info().values())}}
+    regs, local, shared, blocks = info["emissive_sweep_kernel"]["new"]["closest"]
+    log(f"[build] emissive_sweep_kernel: {regs} registers per thread, {local} "
+        f"bytes of local memory per thread, {shared} bytes of shared memory "
+        f"per block, {blocks} resident blocks per SM")
     return info
 
 
@@ -1098,6 +1133,76 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
     return errs, rows
 
 
+def sweep_rays(rows, n, seed, dev):
+    """n rays from the hall toward points near the centroids of emitters
+    drawn at random (most reach one, some pass between them), a tenth of
+    them inactive."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform([-9.5, 0.4, -5.5], [9.5, 5.5, 5.5], (n, 3)).astype(np.float32)
+    r = rows.cpu().numpy()[rng.integers(0, rows.shape[0], n)]
+    target = r[:, 0:3] + (r[:, 3:6] + r[:, 6:9]) / 3.0
+    target = target + rng.normal(scale=0.05, size=target.shape)
+    d = (target - p).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    act = rng.random(n) >= 0.1
+    return (torch.from_numpy(p).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(act).to(dev))
+
+
+def phase_sweep(dev) -> tuple:
+    """The dense emissive sweep's kernel against its plain version on the
+    stress interior's 240 emitters at SWEEP_RAYS rays: t and slot equal on
+    every lane, the kernel's ms (SWEEP_REPS launches), the plain ms, the
+    bound. Returns {rays: row}; a row's launches are its check's and
+    timings', which the kernels line leaves out (it counts the main
+    path's)."""
+    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
+    from hiprt_pt_tpu_torch.lights.light_sampling import _closest_emissive_hit_plain
+    from hiprt_pt_tpu_torch.ops import cuda_sweep
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    scene, _cam = load_stress_scene(aspect=16 / 9, tri_scale=0.01,
+                                    with_textures=False, device=dev)
+    rows = scene.emissive_rows
+    e = rows.shape[0]
+    out = {}
+    for n in SWEEP_RAYS:
+        o, d, act = sweep_rays(rows, n, n, dev)
+        before = ct.launch_counts["emissive_sweep"]
+        tk, sk = cuda_sweep.emissive_sweep(rows, o, d, act)
+        torch.cuda.synchronize()
+        if ct.launch_counts["emissive_sweep"] != before + 1:
+            raise AssertionError("the sweep is not one launch")
+        tp_, sp = _closest_emissive_hit_plain(rows, o, d, act)
+        if not (torch.equal(tk, tp_) and torch.equal(sk, sp)):
+            bad = int(((tk != tp_) | (sk != sp)).sum())
+            raise AssertionError(f"emissive_sweep_kernel differs from the plain "
+                                 f"sweep on {bad} of {n} rays")
+        hit = torch.isfinite(tk) & torch.isfinite(tp_)
+        err = float((tk[hit] - tp_[hit]).abs().max()) if bool(hit.any()) else 0.0
+        ms, _ = cuda_ms(lambda: cuda_sweep.emissive_sweep(rows, o, d, act),
+                        reps=SWEEP_REPS)
+        ms_again, _ = cuda_ms(lambda: cuda_sweep.emissive_sweep(rows, o, d, act),
+                              reps=SWEEP_REPS)
+        plain_ms, _ = cuda_ms(lambda: _closest_emissive_hit_plain(rows, o, d, act),
+                              reps=2)
+        op_ms = n * e * TRI_OPS / F32_OPS_PER_S * 1e3
+        byte_ms = n * SWEEP_RAY_BYTES / BYTES_PER_S * 1e3
+        row = {"rays": n, "emitters": e, "ms": ms, "ms_again": ms_again,
+               "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+               "bound_by": "operations" if op_ms > byte_ms else "bytes",
+               "hit_share": float((sk >= 0).float().mean()),
+               "max_abs_err": err,
+               "launches": ct.launch_counts["emissive_sweep"] - before}
+        out[n] = row
+        log(f"[sweep] emissive_sweep_kernel, {n} rays x {e} emitters: kernel "
+            f"{ms:.3f} ms (again {ms_again:.3f}), plain {plain_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), x bound "
+            f"{ms / row['bound_ms']:.2f}; bit-identical on every lane (max "
+            f"|t diff| {err}), {row['hit_share']:.4f} of the rays hit")
+    return out
+
+
 def launches_per_frame(tag, scene):
     """{(path, kernel, ray kind): launches per frame} of a path's slice, as
     render/integrator.py issues them when every bounce has a live ray:
@@ -1157,10 +1262,46 @@ def launches_per_frame(tag, scene):
     return out
 
 
+def sweeps_per_frame(opts, settings) -> int:
+    """Launches a frame of the dense emissive sweep (emissive_sweep_kernel)
+    on a path whose every bounce has a live ray: under RIS and ReSTIR DI the
+    BSDF candidates sweep once a bounce (ReSTIR's masked first bounce too)
+    and, under ReSTIR, once more in the initial candidates; the emitters
+    are within DENSE_EMISSIVE_MAX wherever launches_per_frame holds."""
+    from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy as L
+
+    if opts.direct_light_sampling not in (L.RIS_BSDF_LIGHT, L.RESTIR_DI):
+        return 0
+    bounces = min(opts.max_bounces_static, int(settings.nb_bounces))
+    return bounces + int(opts.direct_light_sampling == L.RESTIR_DI)
+
+
+def frame_launches(tag, scene) -> dict:
+    """launches_per_frame and, under RIS and ReSTIR DI, the dense emissive
+    sweep's launches: {(tag, "emissive_sweep", "sweep"): sweeps_per_frame}."""
+    from hiprt_pt_tpu_torch.paths import slice_options
+
+    out = launches_per_frame(tag, scene)
+    sweeps = sweeps_per_frame(*slice_options(tag)[:2])
+    if sweeps:
+        out[(tag, "emissive_sweep", "sweep")] = sweeps
+    return out
+
+
+def path_kernels(tag) -> set:
+    """The kernels a path's frames launch (keys of
+    cuda_traverse.launch_counts): its routes' (paths.ROUTES) and, under RIS
+    and ReSTIR DI, the dense emissive sweep."""
+    from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
+
+    sweeps = sweeps_per_frame(*slice_options(tag)[:2])
+    return set(ROUTES[tag]) | ({"emissive_sweep"} if sweeps else set())
+
+
 def phase_slice(tag, scene, cam, bvh, kernels):
     """One warm-up frame and 4 timed frames at 1920x1080. Every kernel of
     ``kernels`` must be launched in them, and no other, as many times as
-    launches_per_frame says."""
+    frame_launches says."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.ops import traverse
     from hiprt_pt_tpu_torch.paths import slice_options
@@ -1192,7 +1333,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     rays = r.rays_traced - rays0
     img = r.hdr_image()
     nonblack = float(np.mean(img.sum(-1) > 0.0))
-    per_kind = launches_per_frame(tag, scene)
+    per_kind = frame_launches(tag, scene)
     log(f"[{tag} slice] {WIDTH}x{HEIGHT}, {settings.nb_bounces} bounces, "
         f"{frames} timed frames: "
         f"{ms:.1f} ms ({ms / frames:.2f} ms/frame; {wall * 1e3:.1f} ms host "
@@ -1256,7 +1397,7 @@ def images_agree(tag, what, got, ref, rays_got, rays_ref):
 def phase_parity(tag, scene, cam, bvh):
     """One sample at 256x128 (two on the ReSTIR path) on the GPU (kernels)
     and on the CPU (plain walks); on the PLAIN_ON_GPU paths also on the GPU
-    with use_pallas_traversal off, which must launch no kernel; on the
+    with use_pallas_traversal off, which must launch no traversal kernel; on the
     ReSTIR path also the fused spatiotemporal mode, GPU vs CPU; on the
     envmap path also the CDF's binary search in place of the alias table,
     GPU vs CPU."""
@@ -1280,12 +1421,17 @@ def phase_parity(tag, scene, cam, bvh):
     ref, rays_ref = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), opts)
     images_agree(tag, "GPU vs CPU", gpu, ref, rays_gpu, rays_ref)
     if tag in PLAIN_ON_GPU:
-        before = dict(ct.launch_counts)
+        # the option is the walks': the emissive sweep launches as before
+        def walks():
+            return {k: v for k, v in ct.launch_counts.items()
+                    if k != "emissive_sweep"}
+
+        before = walks()
         oracle, rays_o = render(scene, cam, bvh,
                                 opts.replace(use_pallas_traversal=False))
-        if ct.launch_counts != before:
+        if walks() != before:
             raise AssertionError(f"{tag}: use_pallas_traversal=False launched "
-                                 f"kernels: {before} -> {ct.launch_counts}")
+                                 f"kernels: {before} -> {walks()}")
         images_agree(tag, "GPU kernels vs GPU plain walks (no launches)", gpu,
                      oracle, rays_gpu, rays_o)
         images_agree(tag, "GPU plain walks vs CPU", oracle, ref, rays_o, rays_ref)
@@ -1543,7 +1689,7 @@ def phase_cli(dev) -> dict:
     """The cli path: python -m hiprt_pt_tpu_torch.app.cli on the gltf path's
     scene file with paths.CLI_FLAGS. e: the command in this process (the
     main path: launch counts reset just before and read just after, held
-    against launches_per_frame for each of its samples); d: the denoisers
+    against frame_launches for each of its samples); d: the denoisers
     on its AOVs, card vs CPU; a: the command as a subprocess, whose PNG
     decodes to 1920x1080x3; c: the command at CLI_PARITY on the card and
     with --cpu (a second subprocess, its raw HDR from its checkpoint), raw
@@ -1584,7 +1730,7 @@ def phase_cli(dev) -> dict:
         launches = dict(ct.launch_counts)
         segments = dict(traverse.march_counts["segments"])
         peak = torch.cuda.max_memory_allocated()
-        per_kind = launches_per_frame("cli", r.scene)
+        per_kind = frame_launches("cli", r.scene)
         samples = r.state.sample_count
         log(f"[cli main] {stats['samples']} samples in frames of "
             f"{r.settings.samples_per_frame}: {stats['frame_ms']:.1f} ms/frame "
@@ -1599,7 +1745,7 @@ def phase_cli(dev) -> dict:
         for k, v in launches.items():
             want = segments.get(k, 0) + samples * sum(
                 n for (_, kk, _kind), n in per_kind.items() if kk == k)
-            if (v > 0) != (k in paths.ROUTES["cli"]) or v != want:
+            if (v > 0) != (k in path_kernels("cli")) or v != want:
                 raise AssertionError(f"the cli path launched {k} {v} times in "
                                      f"{samples} samples; its ray kinds make {want}")
         os.remove(os.path.join(tmp, "e", "cli.npz"))  # read by no later step
@@ -2181,8 +2327,10 @@ def phase_viewer(dev) -> dict:
             f"{pre['warm']:.2f} s")
         if any(alive):
             raise AssertionError("stop() left a thread running")
+        # the fastest and high_quality presets run RIS and ReSTIR DI, which
+        # take the emissive sweep
         for k, v in launches.items():
-            if (v > 0) != (k in paths.ROUTES["viewer"]):
+            if (v > 0) != (k in set(paths.ROUTES["viewer"]) | {"emissive_sweep"}):
                 raise AssertionError(f"the viewer path launched {k} {v} times")
     torch.cuda.empty_cache()
     return launches
@@ -2333,7 +2481,8 @@ def phase_parallel(dev) -> dict:
     b. sample DP of the restir path at 1920x1080: each rank's state
     bit-identical to one process's render with seed 42 + 9176·rank, the
     merged mean within rtol 1e-6 of their mean, the total 2 x 2, the ranks'
-    images different. c. pixel DP of the restir path at 256x128, 3
+    images different; in a. and b. each rank launches the emissive sweep
+    samples x sweeps_per_frame times. c. pixel DP of the restir path at 256x128, 3
     samples, bit-identical. d. the Cornell orbit's frames split over the ranks,
     byte-identical PNGs. Launch counts are the ranks' (each resets its
     counts just before its timed samples and reads them just after).
@@ -2461,6 +2610,17 @@ def phase_parallel(dev) -> dict:
             if bad:
                 raise AssertionError(f"sample DP rank {k} differs from one "
                                      f"process in {bad}")
+        # a rank's timed samples at 1080p sweep as its path's frames do
+        for name in ("pixels-gltf", "samples-restir"):
+            run = runs[name]
+            want = run["samples"] * sweeps_per_frame(run["options"],
+                                                     run["settings"])
+            got = [r["launches"]["emissive_sweep"] for r in reps[name]]
+            log(f"[parallel] {name}: emissive_sweep_kernel launched {got} "
+                f"times by the ranks in {run['samples']} samples each")
+            if got != [want] * ranks:
+                raise AssertionError(f"{name}: the ranks launched the emissive "
+                                     f"sweep {got} times, not {want} each")
         mean = np.mean(accums, axis=0)
         err = float(np.max(np.abs(b[0]["merged"] - mean)
                            / np.maximum(np.abs(mean), 1e-30)))
@@ -2500,7 +2660,8 @@ def phase_parallel(dev) -> dict:
         for r in rep:
             for k, v in (r or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + v
-    for k in ("trace_coherent", "trace_incoherent", "trace_meganode"):
+    for k in ("trace_coherent", "trace_incoherent", "trace_meganode",
+              "emissive_sweep"):
         if not launches.get(k):
             raise AssertionError(f"the parallel path's ranks launched no {k}")
     torch.cuda.empty_cache()
@@ -2508,14 +2669,13 @@ def phase_parallel(dev) -> dict:
 
 
 def main() -> int:
-    from hiprt_pt_tpu_torch import paths
-
     t_start = time.perf_counter()
     name = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     build_info = phase_build()
+    sweep_rows = phase_sweep(dev)
     errs, rows, launches, per_frame = {}, {}, {}, {}
     for tag, cases in PATH_CASES:
         secs = {}
@@ -2533,10 +2693,10 @@ def main() -> int:
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
         rows.update(r)
-        path_kernels = set(paths.ROUTES[tag])
+        on_path = path_kernels(tag)
         counts, per_kind = timed("slice", phase_slice, tag, scene, cam, bvh,
-                                 path_kernels)
-        for k in path_kernels:
+                                 on_path)
+        for k in on_path:
             launches[k] = launches.get(k, 0) + counts[k]
         per_frame.update(per_kind)
         timed("parity", phase_parity, tag, scene, cam, bvh)
@@ -2589,6 +2749,7 @@ def main() -> int:
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {n} launches/frame, "
             f"launches x (ms - bound) {table[-1]['excess_ms_per_frame']:.3f} ms/frame")
     print(json.dumps({"kernel_rows": table, "probe_rows": p_rows,
+                      "sweep_rows": list(sweep_rows.values()),
                       "build_info": build_info}), flush=True)
 
     # traversal kernels: closest hit on the 1080p rays each serves; probes:
@@ -2611,6 +2772,16 @@ def main() -> int:
         # no PyTorch call computes a BVH walk
         "library_ms": entry[k].get("library_ms"),
     } for k in KERNELS]
+    sweep = sweep_rows[SWEEP_RAYS[0]]
+    kernels.append({
+        "name": "emissive_sweep_kernel", "route": "cuda", "source": SWEEP_SOURCE,
+        "replaces": SWEEP_REPLACES,
+        "launches": launches["emissive_sweep"],
+        "max_abs_err": max(r["max_abs_err"] for r in sweep_rows.values()),
+        "ms": sweep["ms"], "plain_ms": sweep["plain_ms"],
+        "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
+        # no PyTorch call computes the sweep
+        "library_ms": None})
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

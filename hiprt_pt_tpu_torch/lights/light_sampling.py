@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as rng_mod
+from ..ops import cuda_sweep
 from ..ops.sampling import sample_triangle
+from ..utils import spans
 
 
 # the dense emissive sweep works on (rays, emitters) blocks of at most this
@@ -118,18 +120,33 @@ def closest_emissive_hit(scene, o: torch.Tensor, d: torch.Tensor,
     """Nearest emissive-triangle hit along (o, d), ignoring occluders: the
     JAX package's dense Moller-Trumbore sweep over the emissive set (RIS
     uses it to find which emitter a BSDF candidate reaches; the winner's
-    visibility ray settles occlusion). The sweep runs over blocks of
-    emitters of at most SWEEP_BLOCK_ELEMS (ray, emitter) pairs; the first
-    emitter wins an equal t, as in the JAX package's sequential loop.
+    visibility ray settles occlusion). The first emitter wins an equal t,
+    as in the JAX package's sequential loop. On the CPU it runs the plain
+    version (_closest_emissive_hit_plain); on CUDA tensors one launch of
+    the kernel (ops/cuda_sweep.py), which gives the same bits, or it
+    raises. Recorded as the span ``emissive_sweep``.
 
     Returns (t (N,), slot (N,) i64 into emissive_rows — -1 on a miss)."""
     rows = scene.emissive_rows
     e = rows.shape[0]
     n = o.shape[0]
+    if e == 0 or scene.num_emissives == 0:
+        return (torch.full((n,), float("inf"), dtype=torch.float32, device=o.device),
+                torch.full((n,), -1, dtype=torch.int64, device=o.device))
+    with spans.span("emissive_sweep"):
+        if o.device.type == "cpu":
+            return _closest_emissive_hit_plain(rows, o, d, active, t_min)
+        return cuda_sweep.emissive_sweep(rows, o, d, active, t_min)
+
+
+def _closest_emissive_hit_plain(rows, o, d, active=None, t_min: float = 1e-5):
+    """closest_emissive_hit in plain PyTorch over the emissive table
+    ``rows`` (E, W), E > 0: the sweep runs over blocks of emitters of at
+    most SWEEP_BLOCK_ELEMS (ray, emitter) pairs."""
+    e = rows.shape[0]
+    n = o.shape[0]
     best_t = torch.full((n,), float("inf"), dtype=torch.float32, device=o.device)
     best_slot = torch.full((n,), -1, dtype=torch.int64, device=o.device)
-    if e == 0 or scene.num_emissives == 0:
-        return best_t, best_slot
     ox, oy, oz = (o[:, k:k + 1] for k in range(3))
     dx, dy, dz = (d[:, k:k + 1] for k in range(3))
     block = max(1, min(e, SWEEP_BLOCK_ELEMS // max(n, 1)))

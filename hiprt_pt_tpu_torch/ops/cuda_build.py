@@ -10,13 +10,15 @@ round of compiles builds every kernel of the port:
 - ``probes.cu``: the gather probes (probes/r5probe2.py); its P1 runs on
   ``wgmma`` fed by TMA (``hopper_async.cuh``), whose tensor map libcuda
   encodes: the source looks ``cuTensorMapEncodeTiled`` up with ``dlsym`` in
-  the libcuda the process has loaded, so only ``-ldl`` is linked.
+  the libcuda the process has loaded, so only ``-ldl`` is linked;
+- ``emissive_sweep.cu``: the dense emissive sweep of RIS's and ReSTIR's
+  BSDF candidates (ops/cuda_sweep.py).
 
-The traversal sources are built with ``-fmad=false`` so that their t is
-bit-identical to the plain walk's; the probes' arithmetic is integer or
-exact, so they are built without it. Each library's C functions get the
-signatures of ``SIGNATURES`` when it is loaded; every one returns the
-``cudaError_t`` of its launch as an int. ``-Xptxas -v`` puts every kernel's
+The traversal sources and the sweep are built with ``-fmad=false`` so that
+their t is bit-identical to the plain version's; the probes' arithmetic is
+integer or exact, so they are built without it. Each library's C functions
+get the signatures of ``SIGNATURES`` when it is loaded; every one returns
+the ``cudaError_t`` of its launch as an int. ``-Xptxas -v`` puts every kernel's
 registers, spills and shared memory into ``build_log``.
 
 ``load_source`` builds and loads one more source the same way; a script
@@ -51,6 +53,7 @@ SOURCES = {
     "traverse": (["-fmad=false"], (_TRAVERSE_HEADER,)),
     "traverse8": (["-fmad=false"], (_TRAVERSE_HEADER,)),
     "probes": (["-ldl"], (_ASYNC_HEADER,)),
+    "emissive_sweep": (["-fmad=false"], ()),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -89,6 +92,12 @@ SIGNATURES = {
                "hpt_mm_probe_info": INFO_ARGS,
                "hpt_dg_probe": [_P, _P] + [_I] * 5 + [_P] * 3,
                "hpt_dg_probe_info": [_I] * 3 + [_P] * 4},
+    # rows, e, row stride, o, d, active (or null), n (int64), t_min (f32),
+    # t, slot, stream
+    "emissive_sweep": {"hpt_emissive_sweep": [_P, _I, _I, _P, _P, _P,
+                                              ctypes.c_int64, ctypes.c_float,
+                                              _P, _P, _P],
+                       "hpt_emissive_sweep_info": INFO_ARGS[1:]},
 }
 
 _lock = threading.Lock()

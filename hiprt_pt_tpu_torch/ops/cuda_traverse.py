@@ -33,7 +33,9 @@ Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
 CUDA tensors it launches its kernel, or raises: there is no fallback. The
 sources are compiled with nvcc at first use and bound with ctypes
-(ops/cuda_build.py). ``launch_counts`` counts the launches of each kernel.
+(ops/cuda_build.py). ``launch_counts`` counts the launches of each kernel
+of the CUDA route: the walks here and the dense emissive sweep
+(ops/cuda_sweep.py), so one reset and one read cover a frame's launches.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ _KERNELS = {
     "trace_lane8log": ("traverse8", torch.int64, 1),
 }
 
-launch_counts = {k: 0 for k in _KERNELS}
+launch_counts = {k: 0 for k in _KERNELS} | {"emissive_sweep": 0}
 # trace_coherent's last launch: its scratch words and its ray count (read by
 # coherent_packets)
 _coherent_last: list = []

@@ -49,9 +49,26 @@ def test_headers_are_named_as_dependencies(name):
 
 
 @pytest.mark.parametrize("name,flag", [("traverse", True), ("traverse8", True),
-                                       ("probes", False)])
-def test_only_the_traversal_sources_forbid_fused_multiply_add(name, flag):
+                                       ("probes", False),
+                                       ("emissive_sweep", True)])
+def test_the_bit_exact_sources_forbid_fused_multiply_add(name, flag):
     assert ("-fmad=false" in cuda_build.SOURCES[name][0]) is flag
+
+
+def test_the_emissive_sweep_is_built_and_declared():
+    """The sweep's source is built with the package's sources, its C
+    functions are declared (rows, e, row stride, o, d, active, n, t_min, t,
+    slot, stream; the four info pointers), and its kernel's name is not a
+    traversal kernel's, so the benchmark counts its time as the
+    integrator's."""
+    assert cuda_build.SOURCES["emissive_sweep"] == (["-fmad=false"], ())
+    sig = cuda_build.SIGNATURES["emissive_sweep"]
+    assert sig["hpt_emissive_sweep"][6:8] == [ctypes.c_int64, ctypes.c_float]
+    assert len(sig["hpt_emissive_sweep"]) == 11
+    assert sig["hpt_emissive_sweep_info"] == cuda_build.INFO_ARGS[1:]
+    text = _source("emissive_sweep")
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", text)
+    assert kernels == ["emissive_sweep_kernel"]
 
 
 def test_previous_kernels_stay_out_of_the_package():

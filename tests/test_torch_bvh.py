@@ -256,7 +256,7 @@ def test_wrappers_run_the_plain_version_on_cpu(scenes):
         assert np.array_equal(rec.t.numpy(), ref.t.numpy())
     assert cuda_traverse.launch_counts == {
         k: 0 for k in ("trace_coherent", "trace_incoherent", "trace_meganode",
-                       "trace_stream8", "trace_lane8log")}
+                       "trace_stream8", "trace_lane8log", "emissive_sweep")}
 
 
 def test_single_leaf_scene():

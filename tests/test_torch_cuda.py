@@ -1149,3 +1149,185 @@ def test_spans_keep_the_syncs_and_put_nothing_in_the_trace(gpu_envmap):
         assert rec.stream_ms is not None and rec.stream_ms >= 0.0
         assert rec.self_ms is not None and rec.self_ms > -1e-3
     assert all(rec.stream_ms > 0.0 for rec in steps)
+
+
+# --- the dense emissive sweep (csrc/emissive_sweep.cu) ---
+
+def _emitter_rows(e, seed, dev):
+    """An (e, 32) emissive table of random triangles in the hall's box (only
+    columns 0:9, v0 e1 e2, are read by the sweep)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((e, 32), np.float32)
+    rows[:, 0:3] = rng.uniform([-9.5, 0.5, -5.5], [9.5, 5.5, 5.5], (e, 3))
+    rows[:, 3:9] = rng.normal(scale=0.8, size=(e, 6))
+    return torch.from_numpy(rows).to(dev)
+
+
+def _rays_at(rows, n, seed, dev, spread=0.05):
+    """n rays from the hall toward points near the centroids of rows drawn
+    at random, so that most hit an emitter; 10% of them inactive."""
+    rng = np.random.default_rng(seed)
+    p, _ = tp.incoherent_rays_np(n, seed)
+    r = rows.cpu().numpy()[rng.integers(0, rows.shape[0], n)]
+    target = r[:, 0:3] + (r[:, 3:6] + r[:, 6:9]) / 3.0
+    target = target + rng.normal(scale=spread, size=target.shape)
+    d = (target - p).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    active = rng.random(n) >= 0.1
+    return (torch.from_numpy(p.astype(np.float32)).to(dev),
+            torch.from_numpy(d).to(dev), torch.from_numpy(active).to(dev))
+
+
+def _sweep_equals_plain(rows, o, d, active, t_min=1e-5):
+    """The kernel, in one launch, against the plain sweep on the same CUDA
+    tensors: t and slot equal on every lane. Returns the kernel's slots."""
+    from hiprt_pt_tpu_torch.lights.light_sampling import _closest_emissive_hit_plain
+    from hiprt_pt_tpu_torch.ops import cuda_sweep
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    before = ct.launch_counts["emissive_sweep"]
+    tk, sk = cuda_sweep.emissive_sweep(rows, o, d, active, t_min)
+    torch.cuda.synchronize()
+    assert ct.launch_counts["emissive_sweep"] == before + 1
+    tp_, sp = _closest_emissive_hit_plain(rows, o, d, active, t_min)
+    assert tk.dtype == torch.float32 and sk.dtype == torch.int64
+    assert torch.equal(sk, sp)
+    assert torch.equal(tk, tp_)
+    return sk
+
+
+@pytest.mark.parametrize("e", [1, 240, 1024, 1500])
+@pytest.mark.parametrize("n", [1, 255, 257, 2_073_600])
+def test_emissive_sweep_matches_plain(n, e):
+    """Every lane's t and slot, at ragged ray counts and emitter counts on
+    both sides of a shared-memory tile (1,024 emitters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    dev = torch.device("cuda:0")
+    rows = _emitter_rows(e, seed=e, dev=dev)
+    o, d, active = _rays_at(rows, n, seed=n + e, dev=dev)
+    slot = _sweep_equals_plain(rows, o, d, active)
+    if n >= 255:
+        assert (slot >= 0).float().mean() > 0.2
+
+
+def test_emissive_sweep_on_the_stress_emitters(gpu_scene):
+    """Rays aimed at the stress interior's 240 emitters (quads of two
+    triangles sharing an edge), as tests/test_torch_ris.py aims them, with
+    and without the active mask, and every lane inactive."""
+    scene, _, _, dev = gpu_scene
+    rows = scene.emissive_rows
+    assert rows.shape[0] == 240
+    o, d, active = _rays_at(rows, 65536, seed=2, dev=dev)
+    slot = _sweep_equals_plain(rows, o, d, active)
+    assert (slot >= 0).float().mean() > 0.2
+    assert torch.all(slot[~active] == -1)
+    everyone = _sweep_equals_plain(rows, o, d, None)
+    assert torch.equal(everyone[active], slot[active])
+    nobody = _sweep_equals_plain(rows, o, d, torch.zeros_like(active))
+    assert torch.all(nobody == -1)
+
+
+def test_emissive_sweep_ties_degenerate_rows_and_t_min():
+    """Duplicated rows give an equal t, which goes to the smaller slot;
+    zero-area rows (det 0 or about 0) never hit; hits at t <= t_min do not
+    count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    dev = torch.device("cuda:0")
+    base = _emitter_rows(300, seed=5, dev=dev)
+    degenerate = base[:100].clone()
+    degenerate[:50, 6:9] = degenerate[:50, 3:6] * 2.0   # e2 parallel to e1
+    degenerate[50:, 3:9] = 0.0                           # a point
+    rows = torch.cat([base, base[:200], degenerate, base[200:]]).contiguous()
+    o, d, active = _rays_at(base, 100_000, seed=6, dev=dev)
+    slot = _sweep_equals_plain(rows, o, d, active)
+    hit = slot >= 0
+    assert hit.float().mean() > 0.2
+    # a duplicate of rows 0..199 sits at 300..499 and one of 200..299 at
+    # 600..699: each hit goes to the first copy
+    assert not torch.any((slot >= 300) & (slot < 500))
+    assert not torch.any(slot >= 600)
+    # a point has det = 0 exactly; a segment's det is its rounding
+    assert not torch.any((slot >= 550) & (slot < 600))
+    assert float(((slot >= 500) & (slot < 550)).float().mean()) < 1e-3
+    # t_min past most hits
+    far = _sweep_equals_plain(rows, o, d, active, t_min=4.0)
+    assert 0 < int((far >= 0).sum()) < int(hit.sum())
+
+
+def test_emissive_sweep_rejects_what_the_kernel_does_not_take(gpu_scene):
+    from hiprt_pt_tpu_torch.ops import cuda_sweep
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    scene, _, _, dev = gpu_scene
+    rows = scene.emissive_rows
+    o, d, active = _rays_at(rows, 256, seed=1, dev=dev)
+    before = ct.launch_counts["emissive_sweep"]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep.emissive_sweep(rows.cpu(), o.cpu(), d.cpu(), active.cpu())
+    with pytest.raises(ValueError):
+        cuda_sweep.emissive_sweep(rows.cpu(), o, d, active)
+    with pytest.raises(TypeError):
+        cuda_sweep.emissive_sweep(rows, o.double(), d, active)
+    with pytest.raises(TypeError):
+        cuda_sweep.emissive_sweep(rows.double(), o, d, active)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_sweep.emissive_sweep(rows, o, d.t().contiguous().t(), active)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_sweep.emissive_sweep(rows[:, :16], o, d, active)
+    with pytest.raises(TypeError):
+        cuda_sweep.emissive_sweep(rows, o, d, active.to(torch.uint8))
+    assert ct.launch_counts["emissive_sweep"] == before
+    info = cuda_sweep.kernel_info()
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("strategy", ["RIS_BSDF_LIGHT", "RESTIR_DI"])
+def test_render_steps_sweep_once_a_bounce_and_keep_their_bits(gpu_scene,
+                                                              monkeypatch,
+                                                              strategy):
+    """Two frames on the card with the kernel and with the plain sweep in
+    its place (the sweep as it ran before the kernel) give the same state
+    bit for bit; a frame launches the kernel once a bounce, and once more
+    under ReSTIR for the initial candidates, each inside its span."""
+    from hiprt_pt_tpu_torch.core import settings as ts
+    from hiprt_pt_tpu_torch.lights import light_sampling as tls
+    from hiprt_pt_tpu_torch.ops import cuda_sweep
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.parallel import jobs
+    from hiprt_pt_tpu_torch.render.renderer import Renderer
+    from hiprt_pt_tpu_torch.utils import spans
+
+    scene, cam, bvh, _ = gpu_scene
+    strat = getattr(ts.LightSamplingStrategy, strategy)
+    opts = ts.RenderOptions(direct_light_sampling=strat, max_bounces_static=4)
+    settings = ts.RenderSettings(nb_bounces=4)
+
+    def frames():
+        r = Renderer(scene, cam, 256, 128, options=opts, settings=settings,
+                     bvh=bvh, seed=42)
+        spans.reset()
+        ct.reset_launch_counts()
+        r.step()
+        r.step()
+        torch.cuda.synchronize()
+        spans.flush()
+        return r, dict(ct.launch_counts), spans.records()
+
+    with monkeypatch.context() as m:
+        m.setattr(cuda_sweep, "emissive_sweep",
+                  lambda rows, o, d, a, t_min:
+                  tls._closest_emissive_hit_plain(rows, o, d, a, t_min))
+        ref, plain_counts, _ = frames()
+    got, counts, recs = frames()
+    assert plain_counts["emissive_sweep"] == 0
+    sweeps = [rec for rec in recs if rec.name == "emissive_sweep"]
+    direct = sum(1 for rec in recs if rec.name == "bounce/direct")
+    initial = 2 if strategy == "RESTIR_DI" else 0
+    assert counts["emissive_sweep"] == len(sweeps) == direct + initial
+    assert direct == 2 * 4
+    assert {rec.parent for rec in sweeps} == (
+        {"bounce/direct", "restir/initial candidates"} if initial
+        else {"bounce/direct"})
+    assert jobs.state_digests(got.state) == jobs.state_digests(ref.state)
