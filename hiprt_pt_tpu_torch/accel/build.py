@@ -33,7 +33,9 @@ JAX package's layouts and numbers:
 
 ``build_bvh`` keeps ``leaf_rows``, ``nodes8l`` + ``leaf_rows8`` and ``nodes``
 only where a kernel that the router (ops/routing.py) picks for the scene
-reads them; the others are None.
+reads them; the others are None. Its stages (STAGES) are host spans
+``bvh/<stage>`` of one set-up step (utils/spans.py), which a reader finds
+after any number of frames.
 
 The JAX package's lane8 tables (bf16 boxes, int8 lattice leaves over a BVH8
 of 128-triangle cluster leaves) exist for the TPU's matrix unit and are not
@@ -43,7 +45,9 @@ JAX package's routing decisions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +55,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops import routing
+from ..utils import spans
 
 LEAF_TRIS_COMPACT = 12  # fat-leaf capacity of a leaf row
 MEGANODE_LEAF_TRIS = 4  # triangles of a leaf embedded in a meganode row
@@ -61,6 +66,11 @@ LANE8_LEAF_TRIS = 128   # cluster-leaf capacity of the JAX package's lane8 table
 # the lane8 leaves store 12-bit instead of 16-bit coordinates above this many
 # triangles (the JAX package's LEAF_BITS_AUTO_TRIS)
 LEAF_BITS_AUTO_TRIS = 600_000
+# build_bvh's stages, in their order: the native SBVH's BVH2, its leaf and
+# node rows, the BVH4 collapse, the native meganode build, the lane8 sizes,
+# the BVH8 collapse, the kept tables' copy to the device
+STAGES = ("raw_sbvh", "compact_rows", "collapse4", "meganode_rows",
+          "lane8_sizes", "collapse8", "upload")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -439,7 +449,7 @@ def lane8_sizes(vertices: np.ndarray, triangles: np.ndarray,
 
 
 def build_bvh(vertices: np.ndarray, triangles: np.ndarray, device=None,
-              all_tables: bool = False) -> BVHData:
+              all_tables: bool = False, timings: Optional[dict] = None) -> BVHData:
     """SBVH build on the host, tables moved to ``device`` (default: the GPU,
     see core/device.py:resolve_device). The router's gates (ops/routing.py)
     pick the kernels that serve the scene's coherent and incoherent rays,
@@ -448,10 +458,28 @@ def build_bvh(vertices: np.ndarray, triangles: np.ndarray, device=None,
     kernel serves a route and the BVH8 (built only then) when a BVH8 kernel
     does. ``nodes4`` and ``tri_rows`` are always kept, and the lane8 sizes
     are computed for every scene without a meganode table. ``all_tables``
-    builds and keeps every table."""
+    builds and keeps every table. Given ``timings``, adds the seconds of
+    each stage that ran to it as "bvh/<stage>" (STAGES)."""
+    with spans.step("cpu", keep=True):
+        return _build(vertices, triangles, resolve_device(device), all_tables,
+                      timings)
+
+
+@contextlib.contextmanager
+def _stage(name: str, timings: Optional[dict]):
+    """One stage of build_bvh: a host span "bvh/<name>", and its seconds in
+    ``timings`` where given."""
+    t0 = time.perf_counter()
+    with spans.span("bvh/" + name):
+        yield
+    if timings is not None:
+        timings["bvh/" + name] = time.perf_counter() - t0
+
+
+def _build(vertices, triangles, device, all_tables: bool,
+           timings: Optional[dict]) -> BVHData:
     from .native import build_bvh_native, build_bvh_raw_native
 
-    device = resolve_device(device)
     vertices = np.asarray(vertices, dtype=np.float32)
     triangles = np.asarray(triangles, dtype=np.int64)
     T = triangles.shape[0]
@@ -462,19 +490,24 @@ def build_bvh(vertices: np.ndarray, triangles: np.ndarray, device=None,
         tri_rows[:, 3:6] = vertices[triangles[:, 1]] - tv0
         tri_rows[:, 6:9] = vertices[triangles[:, 2]] - tv0
 
-    bounds, meta, order = build_bvh_raw_native(
-        vertices, triangles, LEAF_TRIS_COMPACT)
-    n16, lrows = _compact_from_raw(bounds, meta, order, vertices, triangles)
-    if bounds.shape[0] == 1:
-        # the whole scene is one leaf: a root row with that leaf as child 0
-        nodes4 = np.zeros((1, 32), np.float32)
-        nodes4[0, 0:24] = np.nan
-        nodes4[0, 0:6] = bounds[0]
-        nodes4[0, 24:28] = np.asarray([-2, 0, 0, 0], np.int32).view(np.float32)
-        depth4 = 1
-    else:
-        nodes4, depth4 = _collapse4(n16)
-    rows = build_bvh_native(vertices, triangles, MEGANODE_LEAF_TRIS)
+    with _stage("raw_sbvh", timings):
+        bounds, meta, order = build_bvh_raw_native(
+            vertices, triangles, LEAF_TRIS_COMPACT)
+    with _stage("compact_rows", timings):
+        n16, lrows = _compact_from_raw(bounds, meta, order, vertices, triangles)
+    with _stage("collapse4", timings):
+        if bounds.shape[0] == 1:
+            # the whole scene is one leaf: a root row with that leaf as child 0
+            nodes4 = np.zeros((1, 32), np.float32)
+            nodes4[0, 0:24] = np.nan
+            nodes4[0, 0:6] = bounds[0]
+            nodes4[0, 24:28] = np.asarray([-2, 0, 0, 0], np.int32).view(np.float32)
+            depth4 = 1
+        else:
+            nodes4, depth4 = _collapse4(n16)
+    with _stage("meganode_rows", timings):
+        rows = build_bvh_native(vertices, triangles, MEGANODE_LEAF_TRIS)
+        depth2 = meganode_depth(rows)
     small = rows.shape[0] <= MAX_MEGANODE_ROWS
 
     def t(x):  # host tensors until the kept ones are moved
@@ -482,16 +515,19 @@ def build_bvh(vertices: np.ndarray, triangles: np.ndarray, device=None,
 
     bvh = BVHData(nodes4=t(nodes4), leaf_rows=t(lrows), tri_rows=t(tri_rows),
                   depth4=int(depth4), nodes=t(rows) if small else None,
-                  depth2=meganode_depth(rows))
+                  depth2=depth2)
     if all_tables or not small:
-        bvh.lane8 = lane8_sizes(vertices, triangles)
+        with _stage("lane8_sizes", timings):
+            bvh.lane8 = lane8_sizes(vertices, triangles)
     if all_tables or routing.needs_bvh8(bvh):
-        n8l, lr8, _src = collapse8_linear(n16, lrows)
-        bvh.nodes8l, bvh.leaf_rows8 = t(n8l), t(lr8)
-        bvh.depth8 = depth8_of(n8l)
+        with _stage("collapse8", timings):
+            n8l, lr8, _src = collapse8_linear(n16, lrows)
+            bvh.nodes8l, bvh.leaf_rows8 = t(n8l), t(lr8)
+            bvh.depth8 = depth8_of(n8l)
     if not all_tables:
         keep = routing.routed_tables(bvh)
         bvh = dataclasses.replace(bvh, **{
             k: None for k in ("nodes", "leaf_rows", "nodes8l", "leaf_rows8")
             if k not in keep})
-    return bvh.to(device)
+    with _stage("upload", timings):
+        return bvh.to(device)

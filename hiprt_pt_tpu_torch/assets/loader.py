@@ -15,6 +15,7 @@ camera (with bbox-default fallback).
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from typing import Optional
@@ -103,8 +104,10 @@ def load_scene_file(
     (SceneData, Camera, BVHData). ``envmap``: an EnvmapData for the scene.
     Given ``timings``, adds the seconds of each stage to it: "parse" (the
     glTF file, images excluded), "images" (decoding them), "atlas",
-    "bvh" (build and copy to the device), "scene" (build_scene) and
-    "total"; with ``parallel`` the atlas and the BVH overlap.
+    "bvh" (build and copy to the device) and, inside it, build_bvh's
+    stages as "bvh/<stage>" (accel/build.py:STAGES), "scene"
+    (build_scene) and "total"; with ``parallel`` the atlas and the BVH
+    overlap.
 
     Failure chain (reference: SceneParser.cpp:26-41): parse error → warn +
     procedural default scene; default-scene failure → hard exit."""
@@ -153,7 +156,7 @@ def load_scene_file(
             RENDERER_BUILD_BVH,
             timed,
             "bvh",
-            build_bvh,
+            functools.partial(build_bvh, timings=spent),
             np.asarray(parsed.vertices),
             np.asarray(parsed.triangles),
             device,

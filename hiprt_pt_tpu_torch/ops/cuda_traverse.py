@@ -36,12 +36,15 @@ sources are compiled with nvcc at first use and bound with ctypes
 (ops/cuda_build.py). ``launch_counts`` counts the launches of each kernel
 of the CUDA route: the walks here and the dense emissive sweep
 (ops/cuda_sweep.py), so one reset and one read cover a frame's launches.
+Each wrapper's call, on either device, is the span "trace/<kernel>" with
+the counters "launches/<kernel>" and "rays/<kernel>" (utils/spans.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from . import cuda_build
 from . import traverse as plain
 from .cuda_build import check_tensor
@@ -156,13 +159,28 @@ def coherent_packets() -> tuple:
     return int(scratch[1]), -(-n // 32)
 
 
+def _trace(kernel: str, walk, bvh, o, d, t_min, t_max, active,
+           any_hit: bool) -> HitRecord:
+    """One traversal call of ``kernel``: its plain ``walk`` on CPU tensors,
+    its launch on CUDA tensors; inside the span "trace/<kernel>", counted
+    in the step's counters "launches/<kernel>" and "rays/<kernel>" (the
+    rays handed over, active or not)."""
+    with spans.step(o.device), spans.span("trace/" + kernel):
+        if o.device.type == "cpu":
+            hit = walk(bvh, o, d, t_min, t_max, active, any_hit=any_hit)
+        else:
+            hit = _launch(kernel, bvh, o, d, t_min, t_max, active, any_hit)
+        spans.count("launches/" + kernel)
+        spans.count("rays/" + kernel, int(o.shape[0]))
+    return hit
+
+
 def trace_incoherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                      any_hit: bool = False) -> HitRecord:
     """Per-ray BVH4 while-while walk in persistent threads with a ray-pool
     refill (K1 port)."""
-    if o.device.type == "cpu":
-        return plain.traverse(bvh, o, d, t_min, t_max, active, any_hit)
-    return _launch("trace_incoherent", bvh, o, d, t_min, t_max, active, any_hit)
+    return _trace("trace_incoherent", plain.traverse, bvh, o, d, t_min, t_max,
+                  active, any_hit)
 
 
 def trace_coherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
@@ -170,19 +188,16 @@ def trace_coherent(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
     """32-ray warp-packet BVH4 walk in persistent warps, with a way out into
     the per-ray walk for packets that diverge (K2 port); rays in tile-major
     order."""
-    if o.device.type == "cpu":
-        return plain.traverse(bvh, o, d, t_min, t_max, active, any_hit)
-    return _launch("trace_coherent", bvh, o, d, t_min, t_max, active, any_hit)
+    return _trace("trace_coherent", plain.traverse, bvh, o, d, t_min, t_max,
+                  active, any_hit)
 
 
 def trace_meganode(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                    any_hit: bool = False) -> HitRecord:
     """Per-ray while-while walk over the meganode table in persistent
     threads with a ray-pool refill (K3 port). Needs ``bvh.nodes``."""
-    if o.device.type == "cpu":
-        return plain.traverse_meganode(bvh, o, d, t_min, t_max, active,
-                                       any_hit=any_hit)
-    return _launch("trace_meganode", bvh, o, d, t_min, t_max, active, any_hit)
+    return _trace("trace_meganode", plain.traverse_meganode, bvh, o, d, t_min,
+                  t_max, active, any_hit)
 
 
 def trace_stream8(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
@@ -190,15 +205,13 @@ def trace_stream8(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
     """Per-ray BVH8 while-while walk for coherent rays in persistent
     threads, refilled half a warp at a time (K4 port); rays in tile-major
     order. Needs ``bvh.nodes8l``."""
-    if o.device.type == "cpu":
-        return plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit)
-    return _launch("trace_stream8", bvh, o, d, t_min, t_max, active, any_hit)
+    return _trace("trace_stream8", plain.traverse8, bvh, o, d, t_min, t_max,
+                  active, any_hit)
 
 
 def trace_lane8log(bvh, o, d, t_min=1e-4, t_max=float("inf"), active=None,
                    any_hit: bool = False) -> HitRecord:
     """Per-ray BVH8 while-while walk in persistent threads with a ray-pool
     refill (K5 port). Needs ``bvh.nodes8l``."""
-    if o.device.type == "cpu":
-        return plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit)
-    return _launch("trace_lane8log", bvh, o, d, t_min, t_max, active, any_hit)
+    return _trace("trace_lane8log", plain.traverse8, bvh, o, d, t_min, t_max,
+                  active, any_hit)

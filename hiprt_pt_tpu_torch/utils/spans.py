@@ -11,13 +11,16 @@ is synchronous and the stream ms is the host's.
 
 ``step(device)`` opens a step: every span of one ``render_step`` call
 shares its id. A span or a count outside any step is a step of its own.
+``step(device, keep=True)`` opens a set-up step (the BVH build's), which
+is held apart from the render steps, so that the WINDOW steps of a long
+run do not push it out before a reader comes.
 Events are read without a synchronise: at each step's entry, the closed
 steps whose end events report done (``query()``) are turned into
 milliseconds. ``flush()`` resolves every closed step and may synchronise;
 it is for readers that run after the work. The last WINDOW resolved steps
-are kept (``steps()``), each with its records, a span's self stream ms
-being its stream ms less its children's, and its counters; ``records()``
-joins them with a profiler trace (``attribute``).
+of each kind are kept (``steps()``), each with its records, a span's self
+stream ms being its stream ms less its children's, and its counters;
+``records()`` joins them with a profiler trace (``attribute``).
 
 ``count(name, n)`` adds ``n`` to the open step's counter ``name``. A
 device whose event pool is spent keeps host times only, and the step's
@@ -84,6 +87,7 @@ _local = threading.local()
 _ids = itertools.count()
 _pending: list = []
 _history: deque = deque(maxlen=WINDOW)
+_kept: deque = deque(maxlen=WINDOW)
 _free: dict = {}
 _made: dict = {}
 
@@ -103,13 +107,15 @@ def reset() -> None:
     with _lock:
         _pending.clear()
         _history.clear()
+        _kept.clear()
 
 
 class _Step:
-    __slots__ = ("id", "cuda", "spans", "stack", "counters")
+    __slots__ = ("id", "cuda", "spans", "stack", "counters", "keep")
 
-    def __init__(self, device):
+    def __init__(self, device, keep: bool = False):
         self.id = next(_ids)
+        self.keep = keep
         self.cuda = _cuda_index(device)
         self.spans: list = []
         self.stack: list = []
@@ -203,10 +209,11 @@ def span(name: str, device=None):
 
 
 class _StepScope:
-    __slots__ = ("device", "opened")
+    __slots__ = ("device", "keep", "opened")
 
-    def __init__(self, device):
+    def __init__(self, device, keep):
         self.device = device
+        self.keep = keep
 
     def __enter__(self) -> Optional[int]:
         self.opened = None
@@ -216,7 +223,7 @@ class _StepScope:
         if st is not None:
             return st.id
         resolve()
-        self.opened = _local.step = _Step(self.device)
+        self.opened = _local.step = _Step(self.device, self.keep)
         return self.opened.id
 
     def __exit__(self, *exc):
@@ -226,11 +233,12 @@ class _StepScope:
         return False
 
 
-def step(device=None):
+def step(device=None, keep: bool = False):
     """A context manager around one step on ``device``; gives the step's
     id (None while recording is off). A step opened inside an open step
-    of the same thread joins it."""
-    return _StepScope(device)
+    of the same thread joins it. ``keep``: a set-up step, held apart from
+    the render steps' window."""
+    return _StepScope(device, keep)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -293,13 +301,14 @@ def _finish(st: _Step) -> None:
                    st.id, s.start_ns, s.end_ns, stream[s],
                    None if stream[s] is None else stream[s] - children[s])
             for s in st.spans]
-    _history.append(Step(st.id, recs, st.counters))
+    (_kept if st.keep else _history).append(Step(st.id, recs, st.counters))
 
 
 def steps() -> list:
-    """The resolved steps held (the last WINDOW), oldest first."""
+    """The resolved steps held: the last WINDOW set-up steps, then the
+    last WINDOW others, each oldest first."""
     with _lock:
-        return list(_history)
+        return list(_kept) + list(_history)
 
 
 def records() -> list:

@@ -898,6 +898,57 @@ def test_alpha_march_kinds_match_plain(gpu_gltf, kernel):
     assert 0 < int(occ_k.sum()) < int(active.sum())
 
 
+
+@pytest.mark.parametrize("kernel", ["trace_stream8", "trace_lane8log"])
+def test_alpha_march_on_the_bvh8_kernels_in_their_spans(gpu_gltf, kernel):
+    """The alpha march's prune and segments through K4 / K5 (the route of a
+    scene at Bistro's scale) give the BVH8 plain walk's hits, t
+    bit-identical, and the same occluded mask and RNG state; inside one
+    step each call is one span ``trace/<kernel>`` on the card's stream and
+    one count of its launches and rays."""
+    from hiprt_pt_tpu_torch.accel.build import build_bvh
+    from hiprt_pt_tpu_torch.core import rng
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+    from hiprt_pt_tpu_torch.ops import traverse as plain
+    from hiprt_pt_tpu_torch.utils import spans
+
+    scene, _cam, _bvh, dev = gpu_gltf
+    bvh = build_bvh(scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy(),
+                    dev, all_tables=True)
+    o, d, t_max, active = _rays(dev, n=65536, seed=6)
+    t_max = torch.where(torch.isinf(t_max), 3.0, t_max)  # shadow rays end
+    calls = []
+
+    def held(bvh, o, d, t_min, t_max, active, any_hit):
+        rk = getattr(ct, kernel)(bvh, o, d, t_min, t_max, active, any_hit=any_hit)
+        rp = plain.traverse8(bvh, o, d, t_min, t_max, active, any_hit=any_hit)
+        calls.append(o.shape[0])
+        assert torch.equal(rk.prim >= 0, rp.prim >= 0)
+        if not any_hit:
+            assert torch.equal(rk.prim, rp.prim)
+            assert torch.equal(rk.t, rp.t)
+        return rk
+
+    spans.reset()
+    before = ct.launch_counts[kernel]
+    state = rng.seed(torch.arange(o.shape[0], device=dev), 0, 5)
+    with spans.step(dev) as sid:
+        s_k, occ_k = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
+                                          active=active, trace=held)
+    s_p, occ_p = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
+                                      active=active, trace=plain.traverse8)
+    assert ct.launch_counts[kernel] == before + len(calls) and len(calls) >= 3
+    assert torch.equal(occ_k, occ_p) and torch.equal(s_k, s_p)
+    assert 0 < int(occ_k.sum()) < int(active.sum())
+    spans.flush()
+    (st,) = [st for st in spans.steps() if st.id == sid]
+    traced = [r for r in st.records if r.name == "trace/" + kernel]
+    assert len(traced) == len(calls)
+    assert all(r.parent == "march" and r.stream_ms > 0 for r in traced)
+    assert st.counters["launches/" + kernel] == len(calls)
+    assert st.counters["rays/" + kernel] == sum(calls)
+    spans.reset()
+
 def _denoiser_inputs(dev, h=180, w=320, seed=0):
     """Seeded denoiser inputs on ``dev``: an HDR image with fireflies, its
     albedo and unit normals, the variance of the mean and sample counts
