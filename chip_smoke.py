@@ -6,8 +6,9 @@
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
-                source: the five traversal kernels, the two probes and the
-                emissive sweep), the seven earlier kernel versions of
+                source: the five traversal kernels, the two probes, the
+                emissive sweep and the principled BSDF's eval and sample),
+                the seven earlier kernel versions of
                 previous_kernels/ (outside the package, built only to be
                 timed beside the versions that replaced them) and the BVH
                 build library (g++); print what ptxas says of every kernel
@@ -16,7 +17,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 phase), and the registers per
                 thread, local and shared memory and resident blocks per SM
                 of the seven redesigned kernels in both versions, and of
-                emissive_sweep_kernel (a spill in it fails the phase too).
+                emissive_sweep_kernel and the principled BSDF's two
+                kernels (a spill in them fails the phase too).
   2b. sweep   — the dense emissive sweep (csrc/emissive_sweep.cu) against
                 its plain version on the stress interior's 240 emitters at
                 2,073,600 and 518,400 rays (the 1080p wavefront, a pixel-DP
@@ -28,6 +30,22 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 (7.), the viewer (7b.) and the ranks (10.), whose RIS and
                 ReSTIR frames must launch it once a bounce, and ReSTIR
                 once more (sweeps_per_frame).
+  2c. bsdf    — the principled BSDF's kernels (csrc/principled.cu) against
+                the plain version on the card at 2,073,600 and 518,400
+                lanes of the stress interior's 138 materials (ids drawn at
+                random), wo above the normal, wi over the sphere, relative
+                IORs on both sides of 1, under the default options: the RNG
+                state equal on every lane; on >= 99.99% of lanes eval's f
+                and pdf within atol 1e-6 / rtol 1e-5, and sample's drawn
+                lobe and refracted flag equal and its wi, f and pdf within
+                the same; one launch a call; each kernel's and the plain
+                version's ms, the bound (the lane's bytes at 3.35 TB/s;
+                the plain version's f32 operations a lane at 67 TFLOP/s
+                are printed beside it, an upper count that sets no
+                bound), registers, local and shared memory and blocks an
+                SM (a spill fails the build phase). The slices (5.), the
+                cli (7.), the viewer (7b.) and the parallel ranks (10.)
+                must launch them as bsdf_calls_per_frame says.
   Then, for each of the first seven paths of hiprt_pt_tpu_torch/paths.py:
   3. scene    — the path's scene and BVH (paths.load), with the host set-up
                 times, the tables on the card and the router's decisions,
@@ -319,6 +337,19 @@ SWEEP_REPS = 20
 SWEEP_SOURCE = "hiprt_pt_tpu_torch/csrc/emissive_sweep.cu"
 SWEEP_REPLACES = ("none: the JAX package's fused jnp sweep, "
                   "hiprt_pt_tpu/lights/light_sampling.py:199")
+# the principled BSDF's kernels (csrc/principled.cu): the lanes they are
+# timed at (the 1080p wavefront, a pixel-DP rank's quarter of it); a lane's
+# bytes: eval reads 45 material floats, n, wo, wi and eta_rel (220 B) and
+# writes f and pdf (16 B); sample reads the materials, n, wo, eta_rel and
+# the int64 state (216 B) and writes the state, wi, f, pdf and the
+# refracted flag (37 B); the lanes the f32 operations a lane are counted on
+BSDF_LANES = (2_073_600, 518_400)
+BSDF_BYTES = {"eval": 220 + 16, "sample": 216 + 37}
+BSDF_OPS_LANES = 256
+BSDF_REPS = 20
+BSDF_SOURCE = "hiprt_pt_tpu_torch/csrc/principled.cu"
+BSDF_REPLACES = ("none: the JAX package's jnp principled BSDF, which XLA "
+                 "fuses, hiprt_pt_tpu/models/principled.py")
 # launches behind the warm-up in one timing of a traversal kernel (several
 # take a third of a millisecond a launch)
 KERNEL_REPS = 10
@@ -469,7 +500,8 @@ def phase_build():
     check_no_spill(cuda_build.build_log,
                    ("trace_coherent_kernel", "trace_incoherent_kernel",
                     "trace_meganode_kernel", "trace_stream8_kernel",
-                    "dg_probe_kernel", "emissive_sweep_kernel"))
+                    "dg_probe_kernel", "emissive_sweep_kernel",
+                    "principled_eval_kernel", "principled_sample_kernel"))
     log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
         f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
         f"library {t2 - t1:.2f} s")
@@ -514,6 +546,14 @@ def phase_build():
     log(f"[build] emissive_sweep_kernel: {regs} registers per thread, {local} "
         f"bytes of local memory per thread, {shared} bytes of shared memory "
         f"per block, {blocks} resident blocks per SM")
+    from hiprt_pt_tpu_torch.ops import cuda_bsdf
+
+    for k, v in cuda_bsdf.kernel_info().items():
+        info[k] = {"new": {"closest": tuple(v.values())}}
+        log(f"[build] {k}: {v['registers']} registers per thread, "
+            f"{v['local_bytes']} bytes of local memory per thread, "
+            f"{v['shared_bytes']} bytes of shared memory per block, "
+            f"{v['blocks_per_sm']} resident blocks per SM")
     return info
 
 
@@ -1203,6 +1243,207 @@ def phase_sweep(dev) -> tuple:
     return out
 
 
+def bsdf_lanes(n, seed, dev):
+    """n lanes of the stress interior's materials (ids drawn at random),
+    unit normals, wo above them, wi over the sphere, relative IORs on both
+    sides of 1 and RNG states: (materials, n, wo, wi, eta_rel, state)."""
+    from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
+
+    scene, _cam = load_stress_scene(aspect=16 / 9, tri_scale=0.01,
+                                    with_textures=False, device=dev)
+    rng = np.random.default_rng(seed)
+    bank = scene.materials
+    ids = torch.from_numpy(rng.integers(0, bank.num_materials, n)).to(dev)
+    mats = bank.at_indices(ids).make_safe()
+
+    def unit():
+        v = rng.normal(size=(n, 3))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+    nrm, wo, wi = unit(), unit(), unit()
+    wo = np.where((wo * nrm).sum(-1, keepdims=True) < 0, -wo, wo)
+    eta = rng.uniform(0.6, 1.8, n).astype(np.float32)
+    state = rng.integers(0, 2**32, n, dtype=np.int64)
+    return (mats, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in (nrm, wo, wi, eta, state)))
+
+
+def plain_ops_per_lane(opts, lanes) -> dict:
+    """An upper count of the f32 operations a lane of eval and sample: the
+    elements every (non-view) aten operation of the plain version writes,
+    over the lanes, on BSDF_OPS_LANES lanes on the host. It counts work the
+    kernels skip (the plain sample computes every lobe's direction, the
+    kernel only the drawn one's) and selects and copies, so it sets no
+    bound: the rows take the bytes' (phase_bsdf)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from hiprt_pt_tpu_torch.models import principled as pm
+
+    class Count(TorchDispatchMode):
+        elems = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                Count.elems += sum(t.numel() for t in tree_flatten(out)[0]
+                                   if isinstance(t, torch.Tensor))
+            return out
+
+    nrm, wo, wi, eta, state = (x[:BSDF_OPS_LANES].cpu() for x in lanes[1:])
+    mats = type(lanes[0])(**{k: getattr(lanes[0], k)[:BSDF_OPS_LANES].cpu()
+                             for k in lanes[0].__dataclass_fields__})
+    out = {}
+    for name, call in (
+            ("eval", lambda: pm._eval_pdf_plain(opts, mats, nrm, wo, wi,
+                                                {"eta_rel": eta})),
+            ("sample", lambda: pm._sample_plain(opts, mats, nrm, wo, state,
+                                                {"eta_rel": eta}))):
+        Count.elems = 0
+        with Count():
+            call()
+        out[name] = Count.elems / BSDF_OPS_LANES
+    return out
+
+
+def plain_lobe(options, mats, nrm, wo, state):
+    """The lobe the plain sample draws with the states ``state``: the first
+    whose CDF, summed in _sample_plain's order, passes u_sel (0 coat, 1
+    sheen, 2 metal, 3 glass, 4 specular, 5 diffuse), (N,) int8."""
+    from hiprt_pt_tpu_torch.core import rng as rng_mod
+    from hiprt_pt_tpu_torch.models import principled as pm
+
+    probs, _ = pm._lobe_setup(options, mats, pm._to_local(nrm, wo))
+    _, u_sel = rng_mod.next_float(state)
+    cdf = probs[0]
+    below = [u_sel < cdf]
+    for p in probs[1:5]:
+        cdf = cdf + p
+        below.append(u_sel < cdf)
+    below = torch.stack(below, -1)
+    return torch.where(below.any(-1), below.to(torch.int8).argmax(-1),
+                       5).to(torch.int8)
+
+
+def phase_bsdf(dev) -> dict:
+    """The principled BSDF's two kernels against the plain version at
+    BSDF_LANES lanes (bsdf_lanes) under the default options: the state
+    equal on every lane; eval's f and pdf close, and sample's drawn lobe
+    and refracted flag equal and its wi, f and pdf close, on >= 99.99% of
+    lanes each; one launch a call; the kernels' ms (BSDF_REPS launches),
+    the plain ms and the bound (the lane's bytes at 3.35 TB/s). Returns
+    {(kernel, lanes): row}; the rows' launches are the phase's own, which
+    the kernels line leaves out."""
+    from hiprt_pt_tpu_torch.core.settings import RenderOptions
+    from hiprt_pt_tpu_torch.models import principled as pm
+    from hiprt_pt_tpu_torch.ops import cuda_bsdf
+    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+
+    opts = RenderOptions()
+    table = pm.device_coefficients(dev)
+    out = {}
+    ops = None
+    for n in BSDF_LANES:
+        lanes = bsdf_lanes(n, n + 1, dev)
+        mats, nrm, wo, wi, eta, state = lanes
+        if ops is None:
+            ops = plain_ops_per_lane(opts, lanes)
+        aux = {"eta_rel": eta}
+        before = dict(ct.launch_counts)
+        f, pdf = cuda_bsdf.eval_pdf(opts, table, mats, nrm, wo, wi, eta)
+        got = cuda_bsdf.sample(opts, table, mats, nrm, wo, state, eta,
+                               with_lobe=True)
+        torch.cuda.synchronize()
+        if (ct.launch_counts["principled_eval"] != before["principled_eval"] + 1
+                or ct.launch_counts["principled_sample"]
+                != before["principled_sample"] + 1):
+            raise AssertionError("a principled call is not one launch")
+        fp, pp = pm._eval_pdf_plain(opts, mats, nrm, wo, wi, aux)
+        ref = pm._sample_plain(opts, mats, nrm, wo, state, aux)
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError("principled_sample_kernel's RNG state differs "
+                                 "from the plain version's")
+
+        def close(a, b):
+            ok = (a - b).abs() <= 1e-6 + 1e-5 * b.abs()
+            return ok.all(-1) if ok.dim() > 1 else ok
+
+        draw = ((got[5] == plain_lobe(opts, mats, nrm, wo, state))
+                & (got[4] == ref[4]["refracted"]))
+        agree = {"eval": float((close(f, fp) & close(pdf, pp)).float().mean()),
+                 "sample": float((draw & close(got[1], ref[1])
+                                  & close(got[2], ref[2])
+                                  & close(got[3], ref[3])).float().mean())}
+        log(f"[bsdf] {n} lanes: principled_sample_kernel draws the plain "
+            f"version's lobe and refracted flag on "
+            f"{float(draw.float().mean()):.7f} of the lanes")
+        for kind, share in agree.items():
+            if share < 0.9999:
+                raise AssertionError(
+                    f"principled_{kind}_kernel agrees with the plain version "
+                    f"on {share:.6f} of the lanes")
+        calls = {
+            "eval": (lambda: cuda_bsdf.eval_pdf(opts, table, mats, nrm, wo, wi,
+                                                eta),
+                     lambda: pm._eval_pdf_plain(opts, mats, nrm, wo, wi, aux)),
+            "sample": (lambda: cuda_bsdf.sample(opts, table, mats, nrm, wo,
+                                                state, eta),
+                       lambda: pm._sample_plain(opts, mats, nrm, wo, state, aux))}
+        for kind, (kern, plain) in calls.items():
+            ms, _ = cuda_ms(kern, reps=BSDF_REPS)
+            ms_again, _ = cuda_ms(kern, reps=BSDF_REPS)
+            plain_ms, _ = cuda_ms(plain, reps=2)
+            op_ms = n * ops[kind] / F32_OPS_PER_S * 1e3
+            byte_ms = n * BSDF_BYTES[kind] / BYTES_PER_S * 1e3
+            name = f"principled_{kind}_kernel"
+            row = {"kernel": name, "lanes": n, "ms": ms, "ms_again": ms_again,
+                   "plain_ms": plain_ms, "plain_ops_per_lane": ops[kind],
+                   "plain_ops_ms": op_ms, "bound_ms": byte_ms,
+                   "bound_by": "bytes", "agree": agree[kind]}
+            out[(name, n)] = row
+            log(f"[bsdf] {name}, {n} lanes: kernel {ms:.3f} ms (again "
+                f"{ms_again:.3f}), plain {plain_ms:.3f} ms, bound "
+                f"{byte_ms:.4f} ms (bytes: {BSDF_BYTES[kind]} B a lane), "
+                f"x bound {ms / byte_ms:.2f}; the plain version's "
+                f"{ops[kind]:.0f} f32 operations a lane, an upper count, at "
+                f"67 TFLOP/s: {op_ms:.4f} ms; within atol 1e-6 / rtol 1e-5 "
+                f"of the plain version on {agree[kind]:.7f} of the lanes")
+        del lanes, mats, f, pdf, got, fp, pp, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def bsdf_calls_per_frame(opts, settings, scene=None) -> dict:
+    """Launches a sample of the principled BSDF's kernels on a path whose
+    every bounce has a live ray: {"principled_eval": e,
+    "principled_sample": s}, or {} under the Lambertian and Oren-Nayar
+    overrides. A sample a bounce; an eval a light sample a bounce under
+    MIS NEE and under RIS (its winner; with the proxy target its
+    candidates take the proxy), ReSTIR's first bounce included, one more
+    in ReSTIR's final shading, and one a bounce for an importance-sampled
+    envmap (``scene`` given)."""
+    from hiprt_pt_tpu_torch.core.settings import BSDFOverride
+    from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy as L
+    from hiprt_pt_tpu_torch.lights.envmap_sampling import envmap_sampled
+    from hiprt_pt_tpu_torch.render.integrator import _nee_enabled
+
+    if opts.bsdf_override in (BSDFOverride.LAMBERTIAN, BSDFOverride.OREN_NAYAR):
+        return {}
+    bounces = min(opts.max_bounces_static, int(settings.nb_bounces))
+    n_ls = max(int(settings.number_of_light_samples), 1)
+    strategy = opts.direct_light_sampling
+    if strategy in (L.RIS_BSDF_LIGHT, L.RESTIR_DI):
+        if not opts.ris_proxy_target:
+            raise AssertionError("RIS without the proxy target evaluates more "
+                                 "than this count has")
+        evals = bounces * n_ls + int(strategy == L.RESTIR_DI)
+    else:
+        evals = bounces * n_ls if _nee_enabled(opts) else 0
+    if scene is not None and envmap_sampled(opts, scene):
+        evals += bounces
+    return {"principled_eval": evals, "principled_sample": bounces}
+
+
 def launches_per_frame(tag, scene):
     """{(path, kernel, ray kind): launches per frame} of a path's slice, as
     render/integrator.py issues them when every bounce has a live ray:
@@ -1278,24 +1519,33 @@ def sweeps_per_frame(opts, settings) -> int:
 
 def frame_launches(tag, scene) -> dict:
     """launches_per_frame and, under RIS and ReSTIR DI, the dense emissive
-    sweep's launches: {(tag, "emissive_sweep", "sweep"): sweeps_per_frame}."""
+    sweep's launches: {(tag, "emissive_sweep", "sweep"): sweeps_per_frame};
+    and the principled BSDF's: {(tag, "principled_eval" |
+    "principled_sample", "bsdf"): bsdf_calls_per_frame}."""
     from hiprt_pt_tpu_torch.paths import slice_options
 
     out = launches_per_frame(tag, scene)
-    sweeps = sweeps_per_frame(*slice_options(tag)[:2])
+    opts, settings = slice_options(tag)[:2]
+    sweeps = sweeps_per_frame(opts, settings)
     if sweeps:
         out[(tag, "emissive_sweep", "sweep")] = sweeps
+    for k, v in bsdf_calls_per_frame(opts, settings, scene).items():
+        if v:
+            out[(tag, k, "bsdf")] = v
     return out
 
 
 def path_kernels(tag) -> set:
     """The kernels a path's frames launch (keys of
-    cuda_traverse.launch_counts): its routes' (paths.ROUTES) and, under RIS
-    and ReSTIR DI, the dense emissive sweep."""
+    cuda_traverse.launch_counts): its routes' (paths.ROUTES), under RIS
+    and ReSTIR DI the dense emissive sweep, and the principled BSDF's that
+    its options call."""
     from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
 
-    sweeps = sweeps_per_frame(*slice_options(tag)[:2])
-    return set(ROUTES[tag]) | ({"emissive_sweep"} if sweeps else set())
+    opts, settings = slice_options(tag)[:2]
+    sweeps = sweeps_per_frame(opts, settings)
+    bsdf = {k for k, v in bsdf_calls_per_frame(opts, settings).items() if v}
+    return set(ROUTES[tag]) | ({"emissive_sweep"} if sweeps else set()) | bsdf
 
 
 def phase_slice(tag, scene, cam, bvh, kernels):
@@ -1421,10 +1671,10 @@ def phase_parity(tag, scene, cam, bvh):
     ref, rays_ref = render(scene.to(cpu), cam.to(cpu), bvh.to(cpu), opts)
     images_agree(tag, "GPU vs CPU", gpu, ref, rays_gpu, rays_ref)
     if tag in PLAIN_ON_GPU:
-        # the option is the walks': the emissive sweep launches as before
+        # the option is the walks': the emissive sweep and the principled
+        # BSDF's kernels launch as before
         def walks():
-            return {k: v for k, v in ct.launch_counts.items()
-                    if k != "emissive_sweep"}
+            return {k: ct.launch_counts[k] for k in ct.WALKS}
 
         before = walks()
         oracle, rays_o = render(scene, cam, bvh,
@@ -2328,9 +2578,10 @@ def phase_viewer(dev) -> dict:
         if any(alive):
             raise AssertionError("stop() left a thread running")
         # the fastest and high_quality presets run RIS and ReSTIR DI, which
-        # take the emissive sweep
+        # take the emissive sweep; every frame takes the principled BSDF
+        on_path = set(paths.ROUTES["viewer"]) | (set(launches) - set(ct.WALKS))
         for k, v in launches.items():
-            if (v > 0) != (k in set(paths.ROUTES["viewer"]) | {"emissive_sweep"}):
+            if (v > 0) != (k in on_path):
                 raise AssertionError(f"the viewer path launched {k} {v} times")
     torch.cuda.empty_cache()
     return launches
@@ -2482,7 +2733,8 @@ def phase_parallel(dev) -> dict:
     bit-identical to one process's render with seed 42 + 9176·rank, the
     merged mean within rtol 1e-6 of their mean, the total 2 x 2, the ranks'
     images different; in a. and b. each rank launches the emissive sweep
-    samples x sweeps_per_frame times. c. pixel DP of the restir path at 256x128, 3
+    samples x sweeps_per_frame times and each principled kernel samples x
+    bsdf_calls_per_frame times. c. pixel DP of the restir path at 256x128, 3
     samples, bit-identical. d. the Cornell orbit's frames split over the ranks,
     byte-identical PNGs. Launch counts are the ranks' (each resets its
     counts just before its timed samples and reads them just after).
@@ -2610,17 +2862,21 @@ def phase_parallel(dev) -> dict:
             if bad:
                 raise AssertionError(f"sample DP rank {k} differs from one "
                                      f"process in {bad}")
-        # a rank's timed samples at 1080p sweep as its path's frames do
+        # a rank's timed samples at 1080p sweep and shade as its path's
+        # frames do (neither run has an envmap)
         for name in ("pixels-gltf", "samples-restir"):
             run = runs[name]
-            want = run["samples"] * sweeps_per_frame(run["options"],
-                                                     run["settings"])
-            got = [r["launches"]["emissive_sweep"] for r in reps[name]]
-            log(f"[parallel] {name}: emissive_sweep_kernel launched {got} "
-                f"times by the ranks in {run['samples']} samples each")
-            if got != [want] * ranks:
-                raise AssertionError(f"{name}: the ranks launched the emissive "
-                                     f"sweep {got} times, not {want} each")
+            per_sample = {"emissive_sweep": sweeps_per_frame(run["options"],
+                                                             run["settings"]),
+                          **bsdf_calls_per_frame(run["options"], run["settings"])}
+            for k, v in per_sample.items():
+                want = run["samples"] * v
+                got = [r["launches"][k] for r in reps[name]]
+                log(f"[parallel] {name}: {k} launched {got} times by the "
+                    f"ranks in {run['samples']} samples each")
+                if got != [want] * ranks:
+                    raise AssertionError(f"{name}: the ranks launched {k} "
+                                         f"{got} times, not {want} each")
         mean = np.mean(accums, axis=0)
         err = float(np.max(np.abs(b[0]["merged"] - mean)
                            / np.maximum(np.abs(mean), 1e-30)))
@@ -2661,7 +2917,7 @@ def phase_parallel(dev) -> dict:
             for k, v in (r or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + v
     for k in ("trace_coherent", "trace_incoherent", "trace_meganode",
-              "emissive_sweep"):
+              "emissive_sweep", "principled_eval", "principled_sample"):
         if not launches.get(k):
             raise AssertionError(f"the parallel path's ranks launched no {k}")
     torch.cuda.empty_cache()
@@ -2676,6 +2932,9 @@ def main() -> int:
     dev = torch.device("cuda:0")
     build_info = phase_build()
     sweep_rows = phase_sweep(dev)
+    t_bsdf = time.perf_counter()
+    bsdf_rows = phase_bsdf(dev)
+    log(f"[bsdf] {time.perf_counter() - t_bsdf:.1f} s")
     errs, rows, launches, per_frame = {}, {}, {}, {}
     for tag, cases in PATH_CASES:
         secs = {}
@@ -2750,6 +3009,7 @@ def main() -> int:
             f"launches x (ms - bound) {table[-1]['excess_ms_per_frame']:.3f} ms/frame")
     print(json.dumps({"kernel_rows": table, "probe_rows": p_rows,
                       "sweep_rows": list(sweep_rows.values()),
+                      "bsdf_rows": list(bsdf_rows.values()),
                       "build_info": build_info}), flush=True)
 
     # traversal kernels: closest hit on the 1080p rays each serves; probes:
@@ -2782,6 +3042,19 @@ def main() -> int:
         "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
         # no PyTorch call computes the sweep
         "library_ms": None})
+    for kind in ("eval", "sample"):
+        kname = f"principled_{kind}_kernel"
+        row = bsdf_rows[(kname, BSDF_LANES[0])]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": BSDF_SOURCE,
+            "replaces": BSDF_REPLACES,
+            "launches": launches.get(f"principled_{kind}", 0),
+            "agree": min(r["agree"] for (k, _n), r in bsdf_rows.items()
+                         if k == kname),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            # no PyTorch call computes the BSDF
+            "library_ms": None})
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

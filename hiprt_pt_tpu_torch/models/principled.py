@@ -16,6 +16,13 @@ eval agree exactly.
 
 The polynomial fits of the tables run in numpy at import with the JAX
 package's code, so their coefficients are identical.
+
+``eval_pdf`` and ``sample`` run the plain version here (``_eval_pdf_plain``,
+``_sample_plain``) on CPU tensors and one launch of a hand-written kernel
+(ops/cuda_bsdf.py, csrc/principled.cu) on CUDA tensors, or raise. Each call
+is the span ``principled/eval`` or ``principled/sample``. The kernels read
+this module's fits and baked tables as one array, ``coefficient_table()``,
+uploaded once a device (``device_coefficients``).
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ import torch
 from ..core import rng as rng_mod
 from ..core.material import get_alphas, oren_nayar_AB, thin_walled_roughness
 from ..core.settings import GGXSamplingVariant, RenderOptions
+from ..ops import cuda_bsdf
 from ..ops.sampling import INV_PI, build_onb
+from ..utils import spans
 from . import microfacet as mf
 from .fresnel import f82_tint, fresnel_dielectric
 
@@ -560,6 +569,37 @@ def _eval_lobes(options: RenderOptions, mats, wo, wi, eta_rel):
     return f_total, [pdf_c, pdf_sh, pdf_m, pdf_g, pdf_s, pdf_d]
 
 
+def coefficient_table() -> np.ndarray:
+    """The kernels' f32 coefficient table: the glass fits (4, 75), the
+    conductor fit (49,), the sheen LTC fit (3, 8, 8), the glass tables'
+    IOR grid (8,), the baked conductor table (32, 32) and the glass tables
+    (4, 8, 16, 16), each flattened, in that order (csrc/principled.cu's
+    kOff* offsets)."""
+    parts = ((_GLASS_POLY, (4, 75)), (_CONDUCTOR_POLY, (49,)),
+             (_SHEEN_LTC_POLY, (3, 8, 8)), (_GLASS_IORS, (8,)),
+             (_GGX_ESS, (32, 32)), (_GLASS_ALL, (4, 8, 16, 16)))
+    if _GLASS_POLY_DEG != (5, 5, 3) or _CONDUCTOR_POLY_DEG != (7, 7):
+        raise ValueError("the fits' degrees are not the kernels'")
+    for arr, shape in parts:
+        if arr.shape != shape:
+            raise ValueError(f"a table has shape {arr.shape}, the kernels "
+                             f"read {shape}")
+    return np.concatenate([np.asarray(a, np.float32).ravel() for a, _ in parts])
+
+
+# device -> coefficient_table() on it
+_device_tables: dict = {}
+
+
+def device_coefficients(device) -> torch.Tensor:
+    """``coefficient_table()`` on ``device``, uploaded at its first call."""
+    table = _device_tables.get(device)
+    if table is None:
+        table = _device_tables[device] = torch.from_numpy(
+            coefficient_table()).to(device)
+    return table
+
+
 def _eta_rel(mats, aux):
     if aux and "eta_rel" in aux:
         return aux["eta_rel"]
@@ -569,6 +609,15 @@ def _eta_rel(mats, aux):
 def eval_pdf(options: RenderOptions, mats, n, wo, wi, aux=None):
     """World-frame eval. aux['eta_rel'] is the optional (N,) relative IOR
     of the glass lobe (default: entering, ior). Returns (f (N,3), pdf (N,))."""
+    with spans.span("principled/eval"):
+        if n.device.type == "cuda":
+            return cuda_bsdf.eval_pdf(options, device_coefficients(n.device),
+                                      mats, n, wo, wi,
+                                      aux.get("eta_rel") if aux else None)
+        return _eval_pdf_plain(options, mats, n, wo, wi, aux)
+
+
+def _eval_pdf_plain(options: RenderOptions, mats, n, wo, wi, aux=None):
     wo_l = _to_local(n, wo)
     wi_l = _to_local(n, wi)
     f, pdfs = _eval_lobes(options, mats, wo_l, wi_l, _eta_rel(mats, aux))
@@ -583,6 +632,16 @@ def sample(options: RenderOptions, mats, n, wo, rng_state, aux=None):
     the combined pdf. Draws u_sel, then (u1, u2), then u3.
 
     Returns (rng_state, wi (N,3) world, f (N,3), pdf (N,), {'refracted'})."""
+    with spans.span("principled/sample"):
+        if n.device.type == "cuda":
+            rng_state, wi, f, pdf, refracted = cuda_bsdf.sample(
+                options, device_coefficients(n.device), mats, n, wo,
+                rng_state, aux.get("eta_rel") if aux else None)
+            return rng_state, wi, f, pdf, {"refracted": refracted}
+        return _sample_plain(options, mats, n, wo, rng_state, aux)
+
+
+def _sample_plain(options: RenderOptions, mats, n, wo, rng_state, aux=None):
     wo_l = _to_local(n, wo)
     eta_rel = _eta_rel(mats, aux)
     probs, _ = _lobe_setup(options, mats, wo_l)

@@ -12,11 +12,14 @@ round of compiles builds every kernel of the port:
   encodes: the source looks ``cuTensorMapEncodeTiled`` up with ``dlsym`` in
   the libcuda the process has loaded, so only ``-ldl`` is linked;
 - ``emissive_sweep.cu``: the dense emissive sweep of RIS's and ReSTIR's
-  BSDF candidates (ops/cuda_sweep.py).
+  BSDF candidates (ops/cuda_sweep.py);
+- ``principled.cu``: the principled BSDF's eval and sample
+  (ops/cuda_bsdf.py).
 
 The traversal sources and the sweep are built with ``-fmad=false`` so that
-their t is bit-identical to the plain version's; the probes' arithmetic is
-integer or exact, so they are built without it. Each library's C functions
+their t is bit-identical to the plain version's, and the BSDF so that its
+operations round as the plain version's separate kernels do; the probes'
+arithmetic is integer or exact, so they are built without it. Each library's C functions
 get the signatures of ``SIGNATURES`` when it is loaded; every one returns
 the ``cudaError_t`` of its launch as an int. ``-Xptxas -v`` puts every kernel's
 registers, spills and shared memory into ``build_log``.
@@ -54,6 +57,7 @@ SOURCES = {
     "traverse8": (["-fmad=false"], (_TRAVERSE_HEADER,)),
     "probes": (["-ldl"], (_ASYNC_HEADER,)),
     "emissive_sweep": (["-fmad=false"], ()),
+    "principled": (["-fmad=false"], ()),
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -98,6 +102,17 @@ SIGNATURES = {
                                               ctypes.c_int64, ctypes.c_float,
                                               _P, _P, _P],
                        "hpt_emissive_sweep_info": INFO_ARGS[1:]},
+    # eval: fields (a host array of device pointers), n, wo, wi, eta (or
+    # null), tables, flags, n (int64), f, pdf, stream; sample: fields, n,
+    # wo, rng, eta, tables, flags, n (int64), rng_out, wi, f, pdf,
+    # refracted, lobe (or null), stream; info: sample, then the four int
+    # pointers of INFO_ARGS
+    "principled": {"hpt_principled_eval": [_P] * 6 + [_I, ctypes.c_int64]
+                   + [_P] * 3,
+                   "hpt_principled_sample": [_P] * 6 + [_I, ctypes.c_int64]
+                   + [_P] * 7,
+                   "hpt_principled_info": INFO_ARGS,
+                   "hpt_principled_table_floats": []},
 }
 
 _lock = threading.Lock()

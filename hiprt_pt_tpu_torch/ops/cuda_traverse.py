@@ -34,8 +34,9 @@ A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
 CUDA tensors it launches its kernel, or raises: there is no fallback. The
 sources are compiled with nvcc at first use and bound with ctypes
 (ops/cuda_build.py). ``launch_counts`` counts the launches of each kernel
-of the CUDA route: the walks here and the dense emissive sweep
-(ops/cuda_sweep.py), so one reset and one read cover a frame's launches.
+of the CUDA route: the walks here, the dense emissive sweep
+(ops/cuda_sweep.py) and the principled BSDF's eval and sample
+(ops/cuda_bsdf.py), so one reset and one read cover a frame's launches.
 Each wrapper's call, on either device, is the span "trace/<kernel>" with
 the counters "launches/<kernel>" and "rays/<kernel>" (utils/spans.py).
 """
@@ -63,7 +64,11 @@ _KERNELS = {
     "trace_lane8log": ("traverse8", torch.int64, 1),
 }
 
-launch_counts = {k: 0 for k in _KERNELS} | {"emissive_sweep": 0}
+# the walks' keys of launch_counts (each with a plain walk,
+# routing.PLAIN_WALKS); the other keys are the sweep's and the BSDF's
+WALKS = tuple(_KERNELS)
+launch_counts = {k: 0 for k in WALKS} | {
+    "emissive_sweep": 0, "principled_eval": 0, "principled_sample": 0}
 # trace_coherent's last launch: its scratch words and its ray count (read by
 # coherent_packets)
 _coherent_last: list = []

@@ -50,7 +50,8 @@ def test_headers_are_named_as_dependencies(name):
 
 @pytest.mark.parametrize("name,flag", [("traverse", True), ("traverse8", True),
                                        ("probes", False),
-                                       ("emissive_sweep", True)])
+                                       ("emissive_sweep", True),
+                                       ("principled", True)])
 def test_the_bit_exact_sources_forbid_fused_multiply_add(name, flag):
     assert ("-fmad=false" in cuda_build.SOURCES[name][0]) is flag
 
@@ -69,6 +70,25 @@ def test_the_emissive_sweep_is_built_and_declared():
     text = _source("emissive_sweep")
     kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", text)
     assert kernels == ["emissive_sweep_kernel"]
+
+
+def test_the_principled_bsdf_is_built_and_declared():
+    """The BSDF's source is built with the package's sources; its C
+    functions are declared (eval: fields, n, wo, wi, eta, tables, flags, n,
+    f, pdf, stream; sample: fields, n, wo, rng, eta, tables, flags, n,
+    rng_out, wi, f, pdf, refracted, lobe, stream; info with its selector);
+    its two kernels' names are not traversal kernels', so the benchmark
+    counts their time as the integrator's."""
+    assert cuda_build.SOURCES["principled"] == (["-fmad=false"], ())
+    sig = cuda_build.SIGNATURES["principled"]
+    for fn, n_args in (("hpt_principled_eval", 11), ("hpt_principled_sample", 15)):
+        assert len(sig[fn]) == n_args
+        assert sig[fn][6:8] == [ctypes.c_int, ctypes.c_int64]
+    assert sig["hpt_principled_info"] == cuda_build.INFO_ARGS
+    assert sig["hpt_principled_table_floats"] == []
+    text = _source("principled")
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", text)
+    assert kernels == ["principled_eval_kernel", "principled_sample_kernel"]
 
 
 def test_previous_kernels_stay_out_of_the_package():

@@ -254,9 +254,8 @@ def test_wrappers_run_the_plain_version_on_cpu(scenes):
         rec = fn(tbvh, _t(o), _t(d), t_min=0.0)
         assert np.array_equal(rec.prim.numpy(), ref.prim.numpy())
         assert np.array_equal(rec.t.numpy(), ref.t.numpy())
-    assert cuda_traverse.launch_counts == {
-        k: 0 for k in ("trace_coherent", "trace_incoherent", "trace_meganode",
-                       "trace_stream8", "trace_lane8log", "emissive_sweep")}
+    assert set(cuda_traverse.WALKS) <= set(cuda_traverse.launch_counts)
+    assert not any(cuda_traverse.launch_counts.values())
 
 
 def test_single_leaf_scene():

@@ -72,8 +72,8 @@ def test_tracer_without_kernels_is_the_plain_walk(scenes, kind):
         assert routing.tracer(bvh, coherent) is getattr(ct, kernel)
         walk = routing.tracer(bvh, coherent, use_kernels=False)
         assert walk is getattr(plain, routing.PLAIN_WALKS[kernel])
-    assert set(routing.PLAIN_WALKS) == set(routing.KERNEL_TABLES) == (
-        set(ct.launch_counts) - {"emissive_sweep"})
+    assert set(routing.PLAIN_WALKS) == set(routing.KERNEL_TABLES) == set(ct.WALKS)
+    assert set(ct.WALKS) < set(ct.launch_counts)
 
 
 def _render(scene, cam, bvh, use_kernels):

@@ -147,8 +147,9 @@ def test_chip_smoke_holds_the_sweep_to_its_count(box, tag, sweeps):
 
     scene = box[0]
     per_kind = chip_smoke.frame_launches(tag, scene)
-    assert per_kind.pop((tag, "emissive_sweep", "sweep"), 0) == sweeps
-    assert per_kind == chip_smoke.launches_per_frame(tag, scene)
+    assert per_kind.get((tag, "emissive_sweep", "sweep"), 0) == sweeps
+    walks = {k: v for k, v in per_kind.items() if k[1] in ct.WALKS}
+    assert walks == chip_smoke.launches_per_frame(tag, scene)
     kernels = chip_smoke.path_kernels(tag)
     assert ("emissive_sweep" in kernels) == bool(sweeps)
     assert kernels <= set(ct.launch_counts)
