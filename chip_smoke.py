@@ -7,18 +7,14 @@ Phases, each of which passes or raises (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every CUDA source of the port at once (nvcc, one per
                 source: the five traversal kernels, the two probes, the
-                emissive sweep and the principled BSDF's eval and sample),
-                the seven earlier kernel versions of
-                previous_kernels/ (outside the package, built only to be
-                timed beside the versions that replaced them) and the BVH
-                build library (g++); print what ptxas says of every kernel
-                (a spill in trace_coherent, trace_incoherent,
-                trace_meganode, trace_stream8 or dg_probe_kernel fails the
-                phase), and the registers per
-                thread, local and shared memory and resident blocks per SM
-                of the seven redesigned kernels in both versions, and of
-                emissive_sweep_kernel and the principled BSDF's two
-                kernels (a spill in them fails the phase too).
+                emissive sweep and the principled BSDF's eval and sample)
+                and the BVH build library (g++); print what ptxas says of
+                every kernel (a spill in trace_coherent, trace_incoherent,
+                trace_meganode, trace_stream8, dg_probe_kernel,
+                emissive_sweep_kernel or the principled BSDF's two kernels
+                fails the phase), and the registers per thread, local and
+                shared memory and resident blocks per SM of every kernel
+                of the registry (ops/cuda_build.py:KERNELS).
   2b. sweep   — the dense emissive sweep (csrc/emissive_sweep.cu) against
                 its plain version on the stress interior's 240 emitters at
                 2,073,600 and 518,400 rays (the 1080p wavefront, a pixel-DP
@@ -72,11 +68,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 1920x1080 wavefront, with finite t_max and inactive rays;
                 1,024 camera or bounce rays also against brute force; then
                 the kernel's and the plain version's time and the kernel's
-                bound on each (kernel, ray kind) at 1080p; for every
-                traversal kernel also the earlier version (held against the
-                plain version too) timed on the same rays, in turns with
-                the new one; for trace_coherent the share of its 32-ray
-                packets that left packet mode.
+                bound on each (kernel, ray kind) at 1080p; for
+                trace_coherent the share of its 32-ray packets that left
+                packet mode.
   5. slice    — the renderer at 1920x1080 with the path's options and
                 bounce count (paths.slice_options): one warm-up frame and 4
                 timed frames. Launch counts are reset just before and read
@@ -164,8 +158,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                 configurations (exactly equal, and bit for bit the same
                 in a second run), at shapes off mm_probe_kernel's tile, and
                 on the probe's own inputs (the constant); kernel, plain
-                and library times and the bounds at the probe shapes, and
-                for both kernels the earlier version's time beside it;
+                and library times and the bounds at the probe shapes;
                 dg_probe_kernel also on a table past the shared-memory
                 size (its L2 kernel).
   9. bake     — the LUT baker and the sheen LTC fit, a path with no frame:
@@ -221,6 +214,7 @@ import numpy as np
 import torch
 
 from hiprt_pt_tpu_torch.core.device import cuda_ms
+from hiprt_pt_tpu_torch.ops import cuda_build
 # each traversal kernel's tables and its plain PyTorch version (ops/traverse.py)
 from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES, PLAIN_WALKS as PLAIN
 from hiprt_pt_tpu_torch.ops.traverse import alpha_shadows
@@ -366,24 +360,6 @@ P1_LINE, P2_LINE_TILES = "per-group(now)", 19
 # gathered rows a block): (L, W, NL), each at int8 and bf16, 1, 2 and 8 groups
 P1_OFF_TILE = ((300, 100, 200), (129, 65, 1048), (2731, 333, 1096))
 P1_OFF_TILE_ROUNDS = 5
-# the earlier versions of the redesigned kernels, kept outside the package
-# for the side-by-side timing: source -> extra nvcc flags; their libraries,
-# once phase_build has loaded them
-PREVIOUS = {"mm_probe_mma_sync": [], "dg_probe_l2": [],
-            "trace_lane8log_step": ["-fmad=false"],
-            "trace_incoherent_step": ["-fmad=false"],
-            "trace_meganode_packet": ["-fmad=false"],
-            "trace_coherent_block": ["-fmad=false"],
-            "trace_stream8_packet": ["-fmad=false"]}
-_previous = {}
-# traversal kernel -> (its earlier version's source, the package source of
-# the new version, whether the earlier version takes a scratch counter); the
-# C functions are hpt_prev_<kernel>[_info]
-EARLIER = {"trace_stream8": ("trace_stream8_packet", "traverse8", True),
-           "trace_lane8log": ("trace_lane8log_step", "traverse8", True),
-           "trace_incoherent": ("trace_incoherent_step", "traverse", False),
-           "trace_meganode": ("trace_meganode_packet", "traverse", False),
-           "trace_coherent": ("trace_coherent_block", "traverse", False)}
 # a table past the shared-memory size of dg_probe_kernel's strips: (S, tiles)
 P2_PAST_SHARED = (30000, 2)
 # the cli path: the size and samples of its card-vs-CPU run, and the
@@ -452,47 +428,19 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Build every source at once; returns {kernel: {version: {mode:
-    (registers, local bytes, shared bytes, blocks per SM)}}} of the
-    redesigned kernels."""
-    import os
-    from concurrent.futures import ThreadPoolExecutor
-
+    """Build every source at once; returns {kernel: {mode: {registers,
+    local_bytes, shared_bytes, blocks_per_sm}}} of every kernel of the
+    registry (cuda_build.KERNELS), a mode for each set of flags its *_info
+    function is asked with."""
     from hiprt_pt_tpu_torch.accel.native import get_lib
-    from hiprt_pt_tpu_torch.ops import cuda_build
     from hiprt_pt_tpu_torch.probes import r5probe2 as pr
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    dg_args = cuda_build.SIGNATURES["probes"]["hpt_dg_probe"]
-    signatures = {
-        "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS,
-                              "hpt_prev_mm_probe_info": cuda_build.INFO_ARGS},
-        # the earlier dg_probe_kernel takes no strip width and block size
-        "dg_probe_l2": {"hpt_prev_dg_probe": dg_args[:5] + dg_args[7:],
-                        "hpt_prev_dg_probe_info": cuda_build.INFO_ARGS}}
-    for k, (source, _package, counter) in EARLIER.items():
-        signatures[source] = {
-            "hpt_prev_" + k: cuda_build.trace_args(len(KERNEL_TABLES[k]), counter),
-            f"hpt_prev_{k}_info": cuda_build.INFO_ARGS}
-
-    def previous(name):
-        return cuda_build.load_source(
-            os.path.join(here, "previous_kernels", name + ".cu"),
-            PREVIOUS[name], signatures[name])
-
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1 + len(PREVIOUS)) as pool:
-        package = pool.submit(cuda_build.load_libraries)
-        earlier = {name: pool.submit(previous, name) for name in PREVIOUS}
-        libs = package.result()
-        logs = [cuda_build.build_log]
-        for name, fut in earlier.items():
-            _previous[name], output = fut.result()
-            logs.append(output)
+    cuda_build.load_libraries()
     t1 = time.perf_counter()
     get_lib()
     t2 = time.perf_counter()
-    for line in "\n".join(logs).splitlines():
+    for line in cuda_build.build_log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "warning" in line or "(C7" in line):
             log("[build] ptxas:", line.strip().replace("ptxas info    : ", ""))
@@ -502,119 +450,29 @@ def phase_build():
                     "trace_meganode_kernel", "trace_stream8_kernel",
                     "dg_probe_kernel", "emissive_sweep_kernel",
                     "principled_eval_kernel", "principled_sample_kernel"))
-    log(f"[build] kernels ({len(cuda_build.SOURCES)} sources and "
-        f"{len(PREVIOUS)} earlier versions at once) {t1 - t0:.2f} s, BVH "
-        f"library {t2 - t1:.2f} s")
-    # kernel -> (the new version's *_info, the earlier version's, {mode:
-    # flags of the new version's}, {mode: flags of the earlier version's})
-    modes = {"closest": (0,), "any-hit": (1,)}
-    fns = {"mm_probe_kernel": (libs["probes"].hpt_mm_probe_info,
-                               _previous["mm_probe_mma_sync"].hpt_prev_mm_probe_info,
-                               {"int8": (1,), "bf16": (0,)}, None)}
-    for k, (source, package, _counter) in EARLIER.items():
-        fns[k] = (getattr(libs[package], f"hpt_{k}_info"),
-                  getattr(_previous[source], f"hpt_prev_{k}_info"), modes, None)
-    # dg_probe_kernel at the probe's two configurations: strip width, block
-    # size and table rows as its wrapper plans them on this card
+    log(f"[build] kernels ({len(cuda_build.SOURCES)} sources at once) "
+        f"{t1 - t0:.2f} s, BVH library {t2 - t1:.2f} s")
+    # kernel -> {mode: flags of its *_info function}; dg_probe_kernel at the
+    # probe's two configurations: strip width, block size and table rows as
+    # its wrapper plans them on this card
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    fns["dg_probe_kernel"] = (
-        libs["probes"].hpt_dg_probe_info,
-        _previous["dg_probe_l2"].hpt_prev_dg_probe_info,
-        {f"{tiles} tiles": (*pr.dg_plan(S, tiles, sms), S)
-         for S, tiles in pr.DG_CONFIGS},
-        {f"{tiles} tiles": (0,) for _S, tiles in pr.DG_CONFIGS})
+    modes = {k: {"closest": (0,), "any-hit": (1,)} for k in KERNEL_TABLES}
+    modes["mm_probe"] = {"int8": (1,), "bf16": (0,)}
+    modes["dg_probe"] = {f"{tiles} tiles": (*pr.dg_plan(S, tiles, sms), S)
+                         for S, tiles in pr.DG_CONFIGS}
     info = {}
-    for k, (new_fn, prev_fn, flags, prev_flags) in fns.items():
-        info[k] = {"new": {m: cuda_build.kernel_info(new_fn, *f)
-                           for m, f in flags.items()},
-                   "previous": {m: cuda_build.kernel_info(prev_fn, *f)
-                                for m, f in (prev_flags or flags).items()}}
-        for ver, by_mode in info[k].items():
-            for mode, (regs, local, shared, blocks) in by_mode.items():
-                plan = (f", strips of {flags[mode][0]} lanes, blocks of "
-                        f"{flags[mode][1]} threads"
-                        if k == "dg_probe_kernel" and ver == "new" else "")
-                log(f"[build] {k} ({ver}, {mode}{plan}): {regs} registers per "
-                    f"thread, {local} bytes of local memory per thread, "
-                    f"{shared} bytes of shared memory per block, {blocks} "
-                    f"resident blocks per SM")
-    from hiprt_pt_tpu_torch.ops import cuda_sweep
-
-    info["emissive_sweep_kernel"] = {"new": {"closest": tuple(
-        cuda_sweep.kernel_info().values())}}
-    regs, local, shared, blocks = info["emissive_sweep_kernel"]["new"]["closest"]
-    log(f"[build] emissive_sweep_kernel: {regs} registers per thread, {local} "
-        f"bytes of local memory per thread, {shared} bytes of shared memory "
-        f"per block, {blocks} resident blocks per SM")
-    from hiprt_pt_tpu_torch.ops import cuda_bsdf
-
-    for k, v in cuda_bsdf.kernel_info().items():
-        info[k] = {"new": {"closest": tuple(v.values())}}
-        log(f"[build] {k}: {v['registers']} registers per thread, "
-            f"{v['local_bytes']} bytes of local memory per thread, "
-            f"{v['shared_bytes']} bytes of shared memory per block, "
-            f"{v['blocks_per_sm']} resident blocks per SM")
+    for k in cuda_build.KERNELS:
+        info[k] = {m: cuda_build.kernel_info(k, *f)
+                   for m, f in modes.get(k, {"": ()}).items()}
+        for mode, v in info[k].items():
+            plan = (f", strips of {modes[k][mode][0]} lanes, blocks of "
+                    f"{modes[k][mode][1]} threads" if k == "dg_probe" else "")
+            log(f"[build] {k}{f' ({mode}{plan})' if mode else ''}: "
+                f"{v['registers']} registers per thread, {v['local_bytes']} "
+                f"bytes of local memory per thread, {v['shared_bytes']} bytes "
+                f"of shared memory per block, {v['blocks_per_sm']} resident "
+                f"blocks per SM")
     return info
-
-
-def previous_mm_probe(table, idx, rounds, groups):
-    """The earlier mm_probe_kernel (previous_kernels/mm_probe_mma_sync.cu)
-    on the same operand; one partial sum per 64-column warp tile."""
-    tab = table.tab
-    L, W = tab.shape
-    NL = idx.shape[1]
-    n_tiles = groups * -(-(NL // groups) // 64)
-    partial = torch.empty((rounds * n_tiles,), dtype=torch.float32,
-                          device=tab.device)
-    out = torch.empty((1, 1), dtype=torch.float32, device=tab.device)
-    w_pad, l_pad = table.tab_t.shape
-    err = _previous["mm_probe_mma_sync"].hpt_prev_mm_probe(
-        table.tab_t.data_ptr(), idx.data_ptr(), L, W, w_pad, l_pad, NL, rounds,
-        groups, int(tab.dtype == torch.int8), partial.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(tab.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the earlier mm_probe_kernel failed: cudaError {err}")
-    return out
-
-
-def previous_dg_probe(tab, idx, rounds):
-    """The earlier dg_probe_kernel (previous_kernels/dg_probe_l2.cu: every
-    element gathered from device memory through the L2) on the same
-    inputs."""
-    S, tiles = tab.shape[0], tab.shape[1] // 128
-    partial = torch.empty((rounds * tiles,), dtype=torch.float32,
-                          device=tab.device)
-    out = torch.empty((1, 1), dtype=torch.float32, device=tab.device)
-    err = _previous["dg_probe_l2"].hpt_prev_dg_probe(
-        tab.data_ptr(), idx.data_ptr(), S, tiles, rounds, partial.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(tab.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the earlier dg_probe_kernel failed: cudaError {err}")
-    return out
-
-
-def previous_trace(kname, bvh, o, d, t_min, t_max, active, any_hit=False):
-    """The earlier version of the traversal kernel ``kname``
-    (previous_kernels/, EARLIER) with the wrapper's arguments."""
-    from hiprt_pt_tpu_torch.ops.traverse import HitRecord, per_ray
-
-    source, _package, takes_counter = EARLIER[kname]
-    n, dev = o.shape[0], o.device
-    tmin, tmax = per_ray(t_min, n, dev), per_ray(t_max, n, dev)
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    counter = ((torch.zeros((1,), dtype=torch.int64, device=dev),)
-               if takes_counter else ())
-    err = getattr(_previous[source], "hpt_prev_" + kname)(
-        *(getattr(bvh, tab).data_ptr() for tab in KERNEL_TABLES[kname]),
-        o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-        active.data_ptr(), n, int(any_hit), *(c.data_ptr() for c in counter),
-        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the earlier {kname} failed: cudaError {err}")
-    return HitRecord(t=t, prim=prim, u=u, v=v)
 
 
 def check_no_spill(build_log, kernels):
@@ -1133,21 +991,9 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
                 row[f"{mode}_left_share"] = left / total
                 packets = (f"; {left} of {total} packets "
                            f"({left / total:.4f}) left packet mode")
-            before = ""
-            if kname in EARLIER:
-                # the earlier version on the same rays, then the new again
-                v_ms, rv = cuda_ms(lambda: previous_trace(
-                    kname, bvh, o, d, t_min, t_max, a, any_hit=any_hit),
-                    reps=KERNEL_REPS)
-                compare(tag_ + " earlier version", rv, rp, any_hit, a)
-                k2_ms = cuda_ms(lambda: kern(bvh, o, d, t_min, t_max, a,
-                                             any_hit=any_hit), reps=KERNEL_REPS)[0]
-                row[f"{mode}_prev_ms"], row[f"{mode}_ms_again"] = v_ms, k2_ms
-                before = (f", earlier version {v_ms:.3f} ms, kernel again "
-                          f"{k2_ms:.3f} ms")
             log(f"[kernels] {kname} {'any-hit' if any_hit else 'closest'} on "
                 f"{o.shape[0]} {kind} rays ({int(a.sum())} active): kernel "
-                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{before} "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms "
                 f"({o.shape[0] / k_ms / 1e3:.1f} Mrays/s kernel){packets}")
         any_kind = kind in ANY_HIT_KINDS
         mode = "any" if any_kind else "closest"
@@ -1159,11 +1005,6 @@ def phase_kernels(tag, scene, cam, bvh, dev, cases):
             "path": tag, "mode": mode, "ms": row[f"{mode}_ms"],
             "plain_ms": row[f"{mode}_plain_ms"], "any_ms": row["any_ms"],
             "bound_ms": b_ms, "bound_by": b_by}
-        if f"{mode}_prev_ms" in row:
-            rows[(tag, kname, kind)] |= {"prev_ms": row[f"{mode}_prev_ms"],
-                                         "any_prev_ms": row["any_prev_ms"],
-                                         "ms_again": row[f"{mode}_ms_again"],
-                                         "any_ms_again": row["any_ms_again"]}
         if f"{mode}_left_share" in row:
             rows[(tag, kname, kind)] |= {
                 "left_share": row[f"{mode}_left_share"],
@@ -1199,7 +1040,6 @@ def phase_sweep(dev) -> tuple:
     from hiprt_pt_tpu_torch.assets.stress import load_stress_scene
     from hiprt_pt_tpu_torch.lights.light_sampling import _closest_emissive_hit_plain
     from hiprt_pt_tpu_torch.ops import cuda_sweep
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
     scene, _cam = load_stress_scene(aspect=16 / 9, tri_scale=0.01,
                                     with_textures=False, device=dev)
@@ -1208,10 +1048,10 @@ def phase_sweep(dev) -> tuple:
     out = {}
     for n in SWEEP_RAYS:
         o, d, act = sweep_rays(rows, n, n, dev)
-        before = ct.launch_counts["emissive_sweep"]
+        before = cuda_build.launch_counts["emissive_sweep"]
         tk, sk = cuda_sweep.emissive_sweep(rows, o, d, act)
         torch.cuda.synchronize()
-        if ct.launch_counts["emissive_sweep"] != before + 1:
+        if cuda_build.launch_counts["emissive_sweep"] != before + 1:
             raise AssertionError("the sweep is not one launch")
         tp_, sp = _closest_emissive_hit_plain(rows, o, d, act)
         if not (torch.equal(tk, tp_) and torch.equal(sk, sp)):
@@ -1233,7 +1073,7 @@ def phase_sweep(dev) -> tuple:
                "bound_by": "operations" if op_ms > byte_ms else "bytes",
                "hit_share": float((sk >= 0).float().mean()),
                "max_abs_err": err,
-               "launches": ct.launch_counts["emissive_sweep"] - before}
+               "launches": cuda_build.launch_counts["emissive_sweep"] - before}
         out[n] = row
         log(f"[sweep] emissive_sweep_kernel, {n} rays x {e} emitters: kernel "
             f"{ms:.3f} ms (again {ms_again:.3f}), plain {plain_ms:.3f} ms, bound "
@@ -1337,7 +1177,6 @@ def phase_bsdf(dev) -> dict:
     from hiprt_pt_tpu_torch.core.settings import RenderOptions
     from hiprt_pt_tpu_torch.models import principled as pm
     from hiprt_pt_tpu_torch.ops import cuda_bsdf
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
     opts = RenderOptions()
     table = pm.device_coefficients(dev)
@@ -1349,13 +1188,13 @@ def phase_bsdf(dev) -> dict:
         if ops is None:
             ops = plain_ops_per_lane(opts, lanes)
         aux = {"eta_rel": eta}
-        before = dict(ct.launch_counts)
+        before = dict(cuda_build.launch_counts)
         f, pdf = cuda_bsdf.eval_pdf(opts, table, mats, nrm, wo, wi, eta)
         got = cuda_bsdf.sample(opts, table, mats, nrm, wo, state, eta,
                                with_lobe=True)
         torch.cuda.synchronize()
-        if (ct.launch_counts["principled_eval"] != before["principled_eval"] + 1
-                or ct.launch_counts["principled_sample"]
+        if (cuda_build.launch_counts["principled_eval"] != before["principled_eval"] + 1
+                or cuda_build.launch_counts["principled_sample"]
                 != before["principled_sample"] + 1):
             raise AssertionError("a principled call is not one launch")
         fp, pp = pm._eval_pdf_plain(opts, mats, nrm, wo, wi, aux)
@@ -1537,7 +1376,7 @@ def frame_launches(tag, scene) -> dict:
 
 def path_kernels(tag) -> set:
     """The kernels a path's frames launch (keys of
-    cuda_traverse.launch_counts): its routes' (paths.ROUTES), under RIS
+    cuda_build.launch_counts): its routes' (paths.ROUTES), under RIS
     and ReSTIR DI the dense emissive sweep, and the principled BSDF's that
     its options call."""
     from hiprt_pt_tpu_torch.paths import ROUTES, slice_options
@@ -1552,7 +1391,6 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     """One warm-up frame and 4 timed frames at 1920x1080. Every kernel of
     ``kernels`` must be launched in them, and no other, as many times as
     frame_launches says."""
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.ops import traverse
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
@@ -1561,7 +1399,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     r = Renderer(scene, cam, WIDTH, HEIGHT, options=opts, settings=settings,
                  world=world, bvh=bvh, seed=42)
     torch.cuda.reset_peak_memory_stats()
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     traverse.reset_march_counts(tally=True)
     r.step()  # warm-up frame
     torch.cuda.synchronize()
@@ -1576,7 +1414,7 @@ def phase_slice(tag, scene, cam, bvh, kernels):
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ct.launch_counts)
+    launches = dict(cuda_build.launch_counts)
     march = {k: v if isinstance(v, dict) else int(v)
              for k, v in traverse.march_counts.items()}
     ms = start.elapsed_time(end)
@@ -1651,7 +1489,6 @@ def phase_parity(tag, scene, cam, bvh):
     ReSTIR path also the fused spatiotemporal mode, GPU vs CPU; on the
     envmap path also the CDF's binary search in place of the alias table,
     GPU vs CPU."""
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.paths import slice_options
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
@@ -1674,7 +1511,7 @@ def phase_parity(tag, scene, cam, bvh):
         # the option is the walks': the emissive sweep and the principled
         # BSDF's kernels launch as before
         def walks():
-            return {k: ct.launch_counts[k] for k in ct.WALKS}
+            return {k: cuda_build.launch_counts[k] for k in KERNEL_TABLES}
 
         before = walks()
         oracle, rays_o = render(scene, cam, bvh,
@@ -1952,7 +1789,6 @@ def phase_cli(dev) -> dict:
     from hiprt_pt_tpu_torch import paths
     from hiprt_pt_tpu_torch.assets.image_io import decode_png
     from hiprt_pt_tpu_torch.core.state import init_render_state
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.ops import traverse
     from hiprt_pt_tpu_torch.ops.pixel_order import unscramble
     from hiprt_pt_tpu_torch.ops.tonemap import resolve_accumulation
@@ -1974,10 +1810,10 @@ def phase_cli(dev) -> dict:
         argv = paths.cli_argv(glb, folder("e"))
         stats = {}
         torch.cuda.reset_peak_memory_stats()
-        ct.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         traverse.reset_march_counts()
         r = run_cli(argv, stats)
-        launches = dict(ct.launch_counts)
+        launches = dict(cuda_build.launch_counts)
         segments = dict(traverse.march_counts["segments"])
         peak = torch.cuda.max_memory_allocated()
         per_kind = frame_launches("cli", r.scene)
@@ -2172,10 +2008,11 @@ def phase_probes(dev):
     from hiprt_pt_tpu_torch.probes import r5probe2 as pr
 
     where = pr.card()
-    pr.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     results = pr.main(dev)
-    launches = dict(pr.launch_counts)
+    launches = {k + "_kernel": cuda_build.launch_counts[k]
+                for k in ("mm_probe", "dg_probe")}
     log(f"[probes] main() at the probe's shapes: {time.perf_counter() - t0:.1f} s, "
         f"launches {launches}")
     for k, v in launches.items():
@@ -2242,16 +2079,15 @@ def phase_probes(dev):
             first = pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS)
             again = pr.dg_probe_kernel(tab, idx, DG_GATE_ROUNDS)
             got = float(first)
-            earlier = float(previous_dg_probe(tab, idx, DG_GATE_ROUNDS))
             want = float(pr.dg_probe_plain(tab, idx, DG_GATE_ROUNDS))
             errs["dg_probe_kernel"] = max(errs["dg_probe_kernel"], abs(got - want))
             log(f"[probes] dg_probe_kernel gate (S={S} tiles={tiles}, "
                 f"{'per-lane' if per_lane else 'broadcast'} indices, "
                 f"{DG_GATE_ROUNDS} rounds): kernel {got}, plain {want}, a "
-                f"second run {float(again)}, earlier version {earlier}")
-            if got != want or earlier != want:
+                f"second run {float(again)}")
+            if got != want:
                 raise AssertionError(f"dg_probe_kernel S={S} tiles={tiles}: "
-                                     f"{got} (earlier version {earlier}) != {want}")
+                                     f"{got} != {want}")
             if not torch.equal(first, again):
                 raise AssertionError(f"dg_probe_kernel S={S} tiles={tiles}: two "
                                      f"runs differ")
@@ -2305,11 +2141,6 @@ def phase_probes(dev):
             row["plain_ms"] = cuda_ms(lambda: pr.mm_probe_plain(
                 tab, idx, res["rounds"], res["groups"]), reps=1)[0]
             row["library_ms"], why = mm_library_ms(table, idx, res["rounds"])
-            # the earlier version on the same operand, then the new again
-            row["prev_ms"] = cuda_ms(lambda: previous_mm_probe(
-                table, idx, res["rounds"], res["groups"]), reps=3)[0]
-            row["ms_again"] = cuda_ms(lambda: pr.mm_probe_kernel(
-                table, idx, res["rounds"], res["groups"]), reps=3)[0]
             name = f"mm_probe_kernel {res['label']}"
             del table
         else:
@@ -2317,11 +2148,6 @@ def phase_probes(dev):
             row["plain_ms"] = cuda_ms(lambda: pr.dg_probe_plain(
                 tab, idx, res["rounds"]), reps=1)[0]
             row["library_ms"], why = dg_library_ms(tab, idx, res["rounds"]), None
-            # the earlier version on the same inputs, then the new again
-            row["prev_ms"] = cuda_ms(lambda: previous_dg_probe(
-                tab, idx, res["rounds"]), reps=KERNEL_REPS)[0]
-            row["ms_again"] = cuda_ms(lambda: pr.dg_probe_kernel(
-                tab, idx, res["rounds"]), reps=KERNEL_REPS)[0]
             name = f"dg_probe_kernel S={res['S']} tiles={res['tiles']}"
         del tab, idx
         row["bound_ms"], row["bound_by"] = probe_bound(res)
@@ -2332,11 +2158,7 @@ def phase_probes(dev):
                f"{row['eff'] * 100:.1f}% of the dense {row['dtype']} peak")
         if "gather_gbs" in row:
             eff = (f", {row['gather_gbs']:,.0f} GB/s of gathers served from "
-                   f"{pr.dg_served_from(row['g'])} (earlier version "
-                   f"{row['gather_gbs'] * row['ms'] / row['prev_ms']:,.0f} GB/s "
-                   f"from {pr.dg_served_from(0)})")
-        eff += (f"; earlier version {row['prev_ms']:.3f} ms, kernel again "
-                f"{row['ms_again']:.3f} ms")
+                   f"{pr.dg_served_from(row['g'])}")
         log(f"[probes] {name}: kernel {row['ms']:.3f} ms "
             f"({row['ms'] / row['rounds'] * 1e3:.1f} us/round), plain "
             f"{row['plain_ms']:.3f} ms, library {lib}, bound "
@@ -2443,7 +2265,6 @@ def phase_viewer(dev) -> dict:
     from hiprt_pt_tpu_torch.assets.image_io import decode_png
     from hiprt_pt_tpu_torch.assets.loader import load_scene_file
     from hiprt_pt_tpu_torch.core.settings import LightSamplingStrategy as LSS
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.render.renderer import Renderer
     from hiprt_pt_tpu_torch.utils.precompile import enable_persistent_cache
 
@@ -2460,7 +2281,7 @@ def phase_viewer(dev) -> dict:
         if (r.options, r.settings, r.world) != paths.slice_options("viewer"):
             raise AssertionError("the viewer's renderer is not the defaults")
         cache, pre = phase_precompile(r)
-        ct.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         srv = ViewerServer(r, host="127.0.0.1", port=0).serve(blocking=False)
         port = srv._httpd.server_address[1]
         t_serve = time.perf_counter()
@@ -2567,7 +2388,7 @@ def phase_viewer(dev) -> dict:
             enable_persistent_cache()
             shutil.rmtree(cache, ignore_errors=True)
         alive = (srv._render_thread.is_alive(), srv._serve_thread.is_alive())
-        launches = dict(ct.launch_counts)
+        launches = dict(cuda_build.launch_counts)
         frames = sum(len(_frames(x)) for x in
                      [r, *srv._scaled_renderers.values()])
         log(f"[viewer] {time.perf_counter() - t_serve:.1f} s served, "
@@ -2579,7 +2400,8 @@ def phase_viewer(dev) -> dict:
             raise AssertionError("stop() left a thread running")
         # the fastest and high_quality presets run RIS and ReSTIR DI, which
         # take the emissive sweep; every frame takes the principled BSDF
-        on_path = set(paths.ROUTES["viewer"]) | (set(launches) - set(ct.WALKS))
+        on_path = set(paths.ROUTES["viewer"]) | {
+            "emissive_sweep", "principled_eval", "principled_sample"}
         for k, v in launches.items():
             if (v > 0) != (k in on_path):
                 raise AssertionError(f"the viewer path launched {k} {v} times")
@@ -2998,13 +2820,10 @@ def main() -> int:
         n = per_frame.get((tag, k, kind), 0)
         table.append({"kernel": k, "kind": kind, **row, "launches_per_frame": n,
                       "excess_ms_per_frame": n * (row["ms"] - row["bound_ms"])})
-        before = ("" if "prev_ms" not in row else
-                  f" (again {row['ms_again']:.3f} ms, earlier version "
-                  f"{row['prev_ms']:.3f} ms)")
-        if "left_share" in row:
-            before += f", {row['left_share']:.4f} of packets left packet mode"
+        packets = ("" if "left_share" not in row else
+                   f", {row['left_share']:.4f} of packets left packet mode")
         log(f"[rows] {k} {kind} ({row['mode']}, {row['path']}): kernel "
-            f"{row['ms']:.3f} ms{before}, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['ms']:.3f} ms{packets}, plain {row['plain_ms']:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {n} launches/frame, "
             f"launches x (ms - bound) {table[-1]['excess_ms_per_frame']:.3f} ms/frame")
     print(json.dumps({"kernel_rows": table, "probe_rows": p_rows,

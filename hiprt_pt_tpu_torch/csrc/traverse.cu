@@ -305,7 +305,7 @@ trace_incoherent_kernel(const float4* __restrict__ nodes4,
 //   entries of the warp's stack and finishes with K1's per-ray walk, without
 //   refill; the warp then draws its next packet. scratch[1] counts the
 //   packets that left packet mode.
-// What was measured (previous_kernels/sweep_k2_p2.py, NVIDIA H100): a
+// What was measured (a timing sweep, on an NVIDIA H100): a
 // packet visit costs about 40% more than the per-ray visit it replaces,
 // even where every lane shares the node. It does every lane's slab or
 // triangle tests like a per-ray visit, saves no transaction (a warp of
@@ -332,7 +332,7 @@ trace_incoherent_kernel(const float4* __restrict__ nodes4,
 // the packet walk and the per-ray walk in one kernel spill at the 80
 // registers of six blocks an SM; five blocks give ptxas 96
 constexpr int kPacketBlocksPerSM = HPT_K2_BLOCKS;
-// With HPT_K2_PROFILE (previous_kernels/sweep_k2_p2.py builds it so) the
+// With HPT_K2_PROFILE (defined at the build of a timing sweep) the
 // kernel adds to scratch[2 + slot], summed over lanes: 0 packet-mode node
 // visits of a warp, 1 its leaf visits, 2 entries dropped at the pop, 3 the
 // lanes that shared those visits, 4 turns of the per-ray walk of a warp, 5

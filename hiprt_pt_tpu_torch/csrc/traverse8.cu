@@ -36,17 +36,17 @@
 // as its ray ends; trace_stream8 lets lanes wait until half the warp does
 // (or none walks), as trace_incoherent does (traverse.cu:refill_now), so
 // that the rays of a warp are drawn together and stay neighbours in a
-// screen tile. What was measured (previous_kernels/sweep_k4.py, NVIDIA
+// screen tile. What was measured (a timing sweep, on an NVIDIA
 // H100): on stress14's camera rays that refill takes 6% off K5's walk, 2% on
 // RIS's tile-shared shadow rays; the top BFS levels of nodes8l copied into
-// each block's shared memory (previous_kernels/trace_stream8_toptree.cu)
+// each block's shared memory (a variant kernel, no longer kept)
 // served 11 of a camera ray's 14 node visits there and saved nothing, since
 // those rows are L1 hits already; the block-packet walk it replaced took
 // 2.3x and 3x as long.
 
 #include "traverse_common.cuh"
 
-// With HPT_K4_PROFILE (previous_kernels/sweep_k4.py builds it so)
+// With HPT_K4_PROFILE (defined at the build of a timing sweep)
 // trace_stream8 adds its counts to scratch[1 + slot], summed over lanes: 0
 // node visits, 1 leaf visits, 2 rays drawn, 3 refills of a warp, 4 turns of
 // a warp; a profile build is for trace_stream8 only.

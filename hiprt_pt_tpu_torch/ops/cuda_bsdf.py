@@ -5,8 +5,8 @@ names for CUDA tensors: one launch of ``principled_eval_kernel`` or
 ``principled_sample_kernel`` each (the design, the bound and what the
 kernels keep of the plain version's arithmetic are in the source). They
 take CUDA tensors only; the caller runs the plain version on the CPU.
-Their launches count in ``cuda_traverse.launch_counts["principled_eval"]``
-and ``["principled_sample"]``, beside the walks' and the sweep's.
+Their launches count in ``cuda_build.launch_counts["principled_eval"]``
+and ``["principled_sample"]``.
 
 The kernels read the material fields of ``SCALAR_FIELDS`` and
 ``COLOR_FIELDS`` (the enums of the source, in the same order) through
@@ -24,7 +24,6 @@ import torch
 from ..core.settings import GGXSamplingVariant, RenderOptions
 from . import cuda_build
 from .cuda_build import check_tensor
-from .cuda_traverse import launch_counts
 
 SCALAR_FIELDS = (
     "roughness", "oren_nayar_sigma", "metallic", "metallic_F90_falloff_exponent",
@@ -51,16 +50,6 @@ def option_flags(options: RenderOptions) -> int:
                == GGXSamplingVariant.VNDF_SPHERICAL_CAPS else 0))
 
 
-def kernel_info() -> dict:
-    """{"principled_eval_kernel" | "principled_sample_kernel": {registers,
-    local_bytes, shared_bytes, blocks_per_sm}}; builds and loads the
-    library where needed."""
-    fn = cuda_build.load_libraries()["principled"].hpt_principled_info
-    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
-    return {f"principled_{k}_kernel": dict(zip(keys, cuda_build.kernel_info(fn, flag)))
-            for k, flag in (("eval", 0), ("sample", 1))}
-
-
 def _vec(name, t, n, dev):
     t = t.contiguous()
     check_tensor(name, t, torch.float32, (n, 3), dev)
@@ -82,7 +71,7 @@ def _fields(mats, n, dev):
 
 def _checked(table, mats, n_t, wo, eta_rel, wi=None, rng_state=None):
     """The inputs, contiguous, after checking their types and shapes and
-    then that they lie on the card, and the library; wi for eval,
+    then that they lie on the card; wi for eval,
     rng_state for sample. The caller binds ``held`` until its launch is
     queued: a field's contiguous copy freed earlier could become an
     output's memory."""
@@ -104,11 +93,7 @@ def _checked(table, mats, n_t, wo, eta_rel, wi=None, rng_state=None):
     lib = cuda_build.load_libraries()["principled"]
     check_tensor("table", table, torch.float32,
                  (lib.hpt_principled_table_floats(),), dev)
-    return lib, dev, n, n_t, wo, wi, rng_state, eta_rel, ptrs, held
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    return dev, n, n_t, wo, wi, rng_state, eta_rel, ptrs, held
 
 
 def eval_pdf(options: RenderOptions, table, mats, n_t, wo, wi,
@@ -118,19 +103,15 @@ def eval_pdf(options: RenderOptions, table, mats, n_t, wo, wi,
     clamped); ``table`` the coefficient table on the same card. Raises on
     anything but f32 CUDA tensors of those shapes (the materials' fields
     (N,) and (N, 3)), or if the launch fails."""
-    lib, dev, n, n_t, wo, wi, _, eta_rel, ptrs, held = _checked(
+    dev, n, n_t, wo, wi, _, eta_rel, ptrs, held = _checked(
         table, mats, n_t, wo, eta_rel, wi=wi)
     f = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pdf = torch.empty((n,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.hpt_principled_eval(
-            ptrs, n_t.data_ptr(), wo.data_ptr(), wi.data_ptr(),
-            None if eta_rel is None else eta_rel.data_ptr(),
-            table.data_ptr(), option_flags(options), n,
-            f.data_ptr(), pdf.data_ptr(), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"principled eval launch failed: cudaError {err}")
-    launch_counts["principled_eval"] += 1
+    cuda_build.launch("principled_eval", dev, ptrs, n_t.data_ptr(),
+                      wo.data_ptr(), wi.data_ptr(),
+                      None if eta_rel is None else eta_rel.data_ptr(),
+                      table.data_ptr(), option_flags(options), n,
+                      f.data_ptr(), pdf.data_ptr())
     return f, pdf
 
 
@@ -144,7 +125,7 @@ def sample(options: RenderOptions, table, mats, n_t, wo, rng_state,
     int8 (0 coat, 1 sheen, 2 metal, 3 glass, 4 specular, 5 diffuse), which
     wi and refracted do not tell (metal, specular and glass's reflection
     draw the same wi); the render path leaves it off."""
-    lib, dev, n, n_t, wo, _, rng_state, eta_rel, ptrs, held = _checked(
+    dev, n, n_t, wo, _, rng_state, eta_rel, ptrs, held = _checked(
         table, mats, n_t, wo, eta_rel, rng_state=rng_state)
     rng_out = torch.empty((n,), dtype=torch.int64, device=dev)
     wi = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -152,16 +133,12 @@ def sample(options: RenderOptions, table, mats, n_t, wo, rng_state,
     pdf = torch.empty((n,), dtype=torch.float32, device=dev)
     refracted = torch.empty((n,), dtype=torch.bool, device=dev)
     lobe = torch.empty((n,), dtype=torch.int8, device=dev) if with_lobe else None
-    with torch.cuda.device(dev):
-        err = lib.hpt_principled_sample(
-            ptrs, n_t.data_ptr(), wo.data_ptr(), rng_state.data_ptr(),
-            None if eta_rel is None else eta_rel.data_ptr(),
-            table.data_ptr(), option_flags(options), n,
-            rng_out.data_ptr(), wi.data_ptr(), f.data_ptr(), pdf.data_ptr(),
-            refracted.data_ptr(), None if lobe is None else lobe.data_ptr(),
-            _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"principled sample launch failed: cudaError {err}")
-    launch_counts["principled_sample"] += 1
+    cuda_build.launch("principled_sample", dev, ptrs, n_t.data_ptr(),
+                      wo.data_ptr(), rng_state.data_ptr(),
+                      None if eta_rel is None else eta_rel.data_ptr(),
+                      table.data_ptr(), option_flags(options), n,
+                      rng_out.data_ptr(), wi.data_ptr(), f.data_ptr(),
+                      pdf.data_ptr(), refracted.data_ptr(),
+                      None if lobe is None else lobe.data_ptr())
     out = (rng_out, wi, f, pdf, refracted)
     return out + (lobe,) if with_lobe else out

@@ -7,8 +7,7 @@ triangle of the table ``rows`` it hits, occluders ignored: one launch of
 ``lights/light_sampling.py:_closest_emissive_hit_plain`` (its design and
 bound are in the source). It takes CUDA tensors only; the caller
 (``closest_emissive_hit``) runs the plain version on the CPU. Its
-launches count in ``cuda_traverse.launch_counts["emissive_sweep"]``, beside
-the walks'.
+launches count in ``cuda_build.launch_counts["emissive_sweep"]``.
 """
 
 from __future__ import annotations
@@ -17,15 +16,6 @@ import torch
 
 from . import cuda_build
 from .cuda_build import check_tensor
-from .cuda_traverse import launch_counts
-
-
-def kernel_info() -> dict:
-    """{registers, local_bytes, shared_bytes, blocks_per_sm} of
-    emissive_sweep_kernel; builds and loads the library where needed."""
-    fn = cuda_build.load_libraries()["emissive_sweep"].hpt_emissive_sweep_info
-    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
-    return dict(zip(keys, cuda_build.kernel_info(fn)))
 
 
 def emissive_sweep(rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
@@ -49,13 +39,8 @@ def emissive_sweep(rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         check_tensor("active", active, torch.bool, (n,), dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int64, device=dev)
-    fn = cuda_build.load_libraries()["emissive_sweep"].hpt_emissive_sweep
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(rows.data_ptr(), rows.shape[0], rows.shape[1], o.data_ptr(),
-                 d.data_ptr(), None if active is None else active.data_ptr(),
-                 n, t_min, t.data_ptr(), slot.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"emissive_sweep launch failed: cudaError {err}")
-    launch_counts["emissive_sweep"] += 1
+    cuda_build.launch("emissive_sweep", dev, rows.data_ptr(), rows.shape[0],
+                      rows.shape[1], o.data_ptr(), d.data_ptr(),
+                      None if active is None else active.data_ptr(), n, t_min,
+                      t.data_ptr(), slot.data_ptr())
     return t, slot

@@ -33,12 +33,10 @@ Which kernel serves which rays is the router's decision (ops/routing.py).
 A wrapper given CPU tensors runs the plain version (ops/traverse.py). Given
 CUDA tensors it launches its kernel, or raises: there is no fallback. The
 sources are compiled with nvcc at first use and bound with ctypes
-(ops/cuda_build.py). ``launch_counts`` counts the launches of each kernel
-of the CUDA route: the walks here, the dense emissive sweep
-(ops/cuda_sweep.py) and the principled BSDF's eval and sample
-(ops/cuda_bsdf.py), so one reset and one read cover a frame's launches.
-Each wrapper's call, on either device, is the span "trace/<kernel>" with
-the counters "launches/<kernel>" and "rays/<kernel>" (utils/spans.py).
+(ops/cuda_build.py), which launches them and counts their launches in
+``cuda_build.launch_counts``. Each wrapper's call, on either device, is the
+span "trace/<kernel>" with the counters "launches/<kernel>" and
+"rays/<kernel>" (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -53,30 +51,14 @@ from .routing import KERNEL_TABLES, TABLE_WIDTHS
 from .traverse import (HitRecord, check_meganode_depth, check_stack8_depth,
                        check_stack_depth, per_ray)
 
-# kernel -> (source, dtype and length of its zeroed scratch words: the
-# counter a persistent kernel draws its rays or packets from; for
-# trace_coherent also the count of packets that left packet mode)
-_KERNELS = {
-    "trace_coherent": ("traverse", torch.int64, 2),
-    "trace_incoherent": ("traverse", torch.int64, 1),
-    "trace_meganode": ("traverse", torch.int64, 1),
-    "trace_stream8": ("traverse8", torch.int64, 1),
-    "trace_lane8log": ("traverse8", torch.int64, 1),
-}
-
-# the walks' keys of launch_counts (each with a plain walk,
-# routing.PLAIN_WALKS); the other keys are the sweep's and the BSDF's
-WALKS = tuple(_KERNELS)
-launch_counts = {k: 0 for k in WALKS} | {
-    "emissive_sweep": 0, "principled_eval": 0, "principled_sample": 0}
+# kernel -> its zeroed int64 scratch words: the counter a persistent kernel
+# draws its rays or packets from; for trace_coherent also the count of
+# packets that left packet mode
+_SCRATCH_WORDS = {"trace_coherent": 2, "trace_incoherent": 1,
+                  "trace_meganode": 1, "trace_stream8": 1, "trace_lane8log": 1}
 # trace_coherent's last launch: its scratch words and its ray count (read by
 # coherent_packets)
 _coherent_last: list = []
-
-
-def source_of(kernel: str) -> str:
-    """The source (cuda_build.SOURCES) that holds ``kernel``."""
-    return _KERNELS[kernel][0]
 
 
 def routed_kernel_info(bvh) -> dict:
@@ -87,19 +69,9 @@ def routed_kernel_info(bvh) -> dict:
     fails."""
     from .routing import route
 
-    libs = cuda_build.load_libraries()
-    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
-    out = {}
-    for k in sorted({route(bvh, True), route(bvh, False)}):
-        fn = getattr(libs[source_of(k)], f"hpt_{k}_info")
-        out[k] = {mode: dict(zip(keys, cuda_build.kernel_info(fn, flag)))
-                  for mode, flag in (("closest", 0), ("any_hit", 1))}
-    return out
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    return {k: {mode: cuda_build.kernel_info(k, flag)
+                for mode, flag in (("closest", 0), ("any_hit", 1))}
+            for k in sorted({route(bvh, True), route(bvh, False)})}
 
 
 def _tables(kernel: str, bvh, dev) -> tuple:
@@ -137,19 +109,13 @@ def _launch(kernel: str, bvh, o, d, t_min, t_max, active, any_hit) -> HitRecord:
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
-    src, scratch_dtype, scratch_len = _KERNELS[kernel]
-    scratch = torch.zeros((scratch_len,), dtype=scratch_dtype, device=dev)
-    fn = getattr(cuda_build.load_libraries()[src], "hpt_" + kernel)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*tables,
-                 o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                 active.data_ptr(), n, int(any_hit), scratch.data_ptr(),
-                 t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-    launch_counts[kernel] += 1
+    scratch = torch.zeros((_SCRATCH_WORDS[kernel],), dtype=torch.int64,
+                          device=dev)
+    cuda_build.launch(kernel, dev, *tables,
+                      o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+                      tmax.data_ptr(), active.data_ptr(), n, int(any_hit),
+                      scratch.data_ptr(), t.data_ptr(), prim.data_ptr(),
+                      u.data_ptr(), v.data_ptr())
     if kernel == "trace_coherent":
         _coherent_last[:] = [scratch, n]
     return HitRecord(t=t, prim=prim, u=u, v=v)

@@ -115,19 +115,17 @@ class _Clock:
 
 
 def _counts_reset():
-    from ..ops import cuda_traverse as ct
-    from ..ops import traverse
+    from ..ops import cuda_build, traverse
 
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     traverse.reset_march_counts(tally=True)
 
 
 def _counts():
-    from ..ops import cuda_traverse as ct
-    from ..ops import traverse
+    from ..ops import cuda_build, traverse
 
     mc, cs = traverse.march_counts, pm.collective_stats
-    return {"launches": dict(ct.launch_counts),
+    return {"launches": dict(cuda_build.launch_counts),
             "segments": sum(mc["segments"].values()),
             "idle_segments": int(mc["idle"]),
             "collective_calls": dict(cs["calls"]),
@@ -137,7 +135,7 @@ def _counts():
 def _sequence(run, inputs) -> dict:
     """A "sequence" run: render_distributed_sequence of a
     CameraOrbitAnimation on this rank."""
-    from ..ops import cuda_traverse as ct
+    from ..ops import cuda_build
     from ..render.animation import CameraOrbitAnimation
     from ..render.renderer import Renderer
 
@@ -145,11 +143,11 @@ def _sequence(run, inputs) -> dict:
     r = Renderer(scene, cam, run["width"], run["height"],
                  options=run["options"], settings=run["settings"],
                  world=run["world"], bvh=bvh)
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     paths = render_distributed_sequence(
         r, run["frames"], run["spp"], run["out_dir"],
         camera_animation=CameraOrbitAnimation(**run["orbit"]))
-    return {"paths": paths, "launches": dict(ct.launch_counts)}
+    return {"paths": paths, "launches": dict(cuda_build.launch_counts)}
 
 
 def _run(rank, world, run, inputs, device):

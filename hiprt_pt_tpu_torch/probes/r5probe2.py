@@ -26,11 +26,11 @@ leaf rows? The port of ``benchmarks/r5probe2.py``.
 
 Each kernel's wrapper launches it on CUDA tensors, runs its plain version
 (``mm_probe_plain``, ``dg_probe_plain``) on CPU tensors, and never falls
-back; ``launch_counts`` counts the launches. On the GPU every line carries
-the card's name and power limit, the time per round (CUDA events after a
-warm-up) and the share of the H100's dense peak (1,979 TOP/s int8, 989
-TFLOP/s bf16). On the CPU (``device="cpu"``) the plain versions run and no
-time is taken.
+back; their launches count in ``cuda_build.launch_counts["mm_probe"]`` and
+``["dg_probe"]``. On the GPU every line carries the card's name and power
+limit, the time per round (CUDA events after a warm-up) and the share of
+the H100's dense peak (1,979 TOP/s int8, 989 TFLOP/s bf16). On the CPU
+(``device="cpu"``) the plain versions run and no time is taken.
 
 The probe's own inputs (``mm_inputs``, ``dg_inputs``, bit for bit the TPU
 probe's) give a constant answer: every row of its P1 table holds 127, and
@@ -97,14 +97,6 @@ TINY = {
 }
 # H100 SXM dense tensor-core peaks (NVIDIA's data sheet), operations/s
 PEAK_OPS = {torch.int8: 1979e12, torch.bfloat16: 989e12}
-
-launch_counts = {"mm_probe_kernel": 0, "dg_probe_kernel": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 def _check_rounds(rounds: int) -> None:
     """P1 and P2's L2 kernel take a round per grid row (at most 65,535)."""
@@ -261,20 +253,10 @@ def mm_probe_kernel(table: MMTable, idx, rounds: int, groups: int = 1):
     partial = torch.empty((rounds * n_blocks,), dtype=torch.float32, device=dev)
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     w_pad, l_pad = table.tab_t.shape
-    with torch.cuda.device(dev):
-        err = lib.hpt_mm_probe(
-            table.tab_t.data_ptr(), idx.data_ptr(), L, W, w_pad, l_pad, NL,
-            rounds, groups, int(table.tab_t.dtype == torch.int8),
-            partial.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err > 0:
-        raise RuntimeError(f"mm_probe_kernel launch failed: cudaError {err}")
-    if err < 0:
-        raise RuntimeError(
-            "mm_probe_kernel: libcuda's tensor-map encoder "
-            + ("is missing" if err == -1 else
-               f"refused the table: CUresult {-err - 100}"))
-    launch_counts["mm_probe_kernel"] += 1
+    cuda_build.launch("mm_probe", dev, table.tab_t.data_ptr(), idx.data_ptr(),
+                      L, W, w_pad, l_pad, NL, rounds, groups,
+                      int(table.tab_t.dtype == torch.int8), partial.data_ptr(),
+                      out.data_ptr())
     return out
 
 
@@ -335,15 +317,9 @@ def dg_probe_kernel(tab, idx, rounds: int, plan: tuple | None = None):
     strips = tiles * (DG_LANES // g) if g else tiles
     partial = torch.empty((rounds * strips,), dtype=torch.float32, device=dev)
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
-    lib = cuda_build.load_libraries()["probes"]
-    with torch.cuda.device(dev):
-        err = lib.hpt_dg_probe(
-            tab.data_ptr(), idx.data_ptr(), S, tiles, rounds, g, threads,
-            partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dg_probe_kernel launch failed: cudaError {err}")
-    launch_counts["dg_probe_kernel"] += 1
+    cuda_build.launch("dg_probe", dev, tab.data_ptr(), idx.data_ptr(), S,
+                      tiles, rounds, g, threads, partial.data_ptr(),
+                      out.data_ptr())
     return out
 
 

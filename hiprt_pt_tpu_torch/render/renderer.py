@@ -397,11 +397,11 @@ class Renderer:
         out = {"options": str(self.options)}
         if self.device.type != "cuda" or not self.options.use_pallas_traversal:
             return {"kernel": "plain walks", **out}
-        from ..ops import cuda_traverse
+        from ..ops import cuda_build, cuda_traverse
 
         kernels = cuda_traverse.routed_kernel_info(self.bvh)
         return {"kernel": "render_step", **out, "kernels": kernels,
-                "launch_counts": dict(cuda_traverse.launch_counts),
+                "launch_counts": dict(cuda_build.launch_counts),
                 "peak_device_memory_bytes":
                     torch.cuda.max_memory_allocated(self.device)}
 

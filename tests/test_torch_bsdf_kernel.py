@@ -33,7 +33,6 @@ from hiprt_pt_tpu_torch.core.material import FIELD_NAMES, MaterialBank
 from hiprt_pt_tpu_torch.models import dispatcher
 from hiprt_pt_tpu_torch.models import principled as pm
 from hiprt_pt_tpu_torch.ops import cuda_bsdf, cuda_build
-from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 from hiprt_pt_tpu_torch.utils import spans
 
 W, H = 32, 16
@@ -150,7 +149,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch, thin_film, ec, exact,
     opts = _options(thin_film, ec, exact, caps)
     mats, nrm, wo, wi, eta, state = random_lanes(2048, 3, "cpu")
     aux = {"eta_rel": eta}
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     f, pdf = pm.eval_pdf(opts, mats, nrm, wo, wi, aux)
     fp, pp = pm._eval_pdf_plain(opts, mats, nrm, wo, wi, aux)
     assert torch.equal(f, fp) and torch.equal(pdf, pp)
@@ -160,15 +159,15 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch, thin_film, ec, exact,
     for a, b in zip(got[:4], ref[:4]):
         assert torch.equal(a, b)
     assert torch.equal(got[4]["refracted"], ref[4]["refracted"])
-    assert ct.launch_counts["principled_eval"] == 0
-    assert ct.launch_counts["principled_sample"] == 0
+    assert cuda_build.launch_counts["principled_eval"] == 0
+    assert cuda_build.launch_counts["principled_sample"] == 0
 
 
 def test_the_wrapper_refuses_what_the_kernels_do_not_take():
     opts = _options()
     mats, nrm, wo, wi, eta, state = random_lanes(64, 4, "cpu")
     table = pm.device_coefficients(nrm.device)
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         cuda_bsdf.eval_pdf(opts, table, mats, nrm, wo, wi, eta)
     with pytest.raises(ValueError, match="CUDA"):
@@ -189,8 +188,8 @@ def test_the_wrapper_refuses_what_the_kernels_do_not_take():
         cuda_bsdf.sample(opts, table, mats.__class__(**{
             **{k: getattr(mats, k) for k in FIELD_NAMES},
             "base_color": mats.base_color[:, :2]}), nrm, wo, state, eta)
-    assert ct.launch_counts["principled_eval"] == 0
-    assert ct.launch_counts["principled_sample"] == 0
+    assert cuda_build.launch_counts["principled_eval"] == 0
+    assert cuda_build.launch_counts["principled_sample"] == 0
 
 
 @pytest.mark.parametrize("override", ["LAMBERTIAN", "OREN_NAYAR"])
@@ -427,13 +426,13 @@ def test_the_kernels_match_the_plain_version_on_the_card(card_lanes, thin_film,
     opts = _options(thin_film, ec, exact, caps)
     table = pm.device_coefficients(nrm.device)
     n = nrm.shape[0]
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     f, pdf = cuda_bsdf.eval_pdf(opts, table, mats, nrm, wo, wi, eta)
     rng_k, wi_k, f_k, pdf_k, refr_k, lobe_k = cuda_bsdf.sample(
         opts, table, mats, nrm, wo, state, eta, with_lobe=True)
     torch.cuda.synchronize()
-    assert ct.launch_counts["principled_eval"] == 1
-    assert ct.launch_counts["principled_sample"] == 1
+    assert cuda_build.launch_counts["principled_eval"] == 1
+    assert cuda_build.launch_counts["principled_sample"] == 1
     aux = {"eta_rel": eta}
     fp, pp = pm._eval_pdf_plain(opts, mats, nrm, wo, wi, aux)
     bad_f, rel_f = _far(f, fp)
@@ -468,7 +467,7 @@ def test_the_kernels_refuse_on_the_card(card_lanes):
     mats, nrm, wo, wi, eta, state = card_lanes
     opts = _options()
     table = pm.device_coefficients(nrm.device)
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with pytest.raises(TypeError):
         cuda_bsdf.eval_pdf(opts, table, mats, nrm, wo.double(), wi, eta)
     with pytest.raises(ValueError):
@@ -479,8 +478,8 @@ def test_the_kernels_refuse_on_the_card(card_lanes):
         cuda_bsdf.sample(opts, table[:-1], mats, nrm, wo, state, eta)
     with pytest.raises(ValueError, match="table is on"):
         cuda_bsdf.eval_pdf(opts, table.cpu(), mats, nrm, wo, wi, eta)
-    assert ct.launch_counts["principled_eval"] == 0
-    assert ct.launch_counts["principled_sample"] == 0
+    assert cuda_build.launch_counts["principled_eval"] == 0
+    assert cuda_build.launch_counts["principled_sample"] == 0
     # a strided or broadcast input is made contiguous, as the baker's
     # normal is
     up = torch.tensor([0.0, 0.0, 1.0], device=nrm.device).expand(64, 3)
@@ -489,7 +488,7 @@ def test_the_kernels_refuse_on_the_card(card_lanes):
     fp, pp = pm._eval_pdf_plain(opts, m64, up, wo[:64], wi[:64],
                                 {"eta_rel": eta[:64]})
     assert not bool(_far(f, fp)[0].any()) and not bool(_far(pdf, pp)[0].any())
-    assert ct.launch_counts["principled_eval"] == 1
+    assert cuda_build.launch_counts["principled_eval"] == 1
 
 
 @pytest.fixture(scope="module")
@@ -529,13 +528,13 @@ def test_a_card_frame_launches_the_kernels_once_a_call(card_box, monkeypatch,
         max_bounces_static=4)
     state = init_render_state(256, 128, 7, scene.vertices.device,
                               with_restir=strategy == "RESTIR_DI")
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     render_step(opts, 256, 128, scene, bvh, state, cam,
                 ts.RenderSettings(nb_bounces=4), ts.WorldSettings())
     torch.cuda.synchronize()
     spans.flush()
     recs = spans.records()
-    assert ct.launch_counts["principled_eval"] == evals
-    assert ct.launch_counts["principled_sample"] == 4
+    assert cuda_build.launch_counts["principled_eval"] == evals
+    assert cuda_build.launch_counts["principled_sample"] == 4
     assert sum(r.name == "principled/eval" for r in recs) == evals
     assert sum(r.name == "principled/sample" for r in recs) == 4

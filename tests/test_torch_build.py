@@ -1,15 +1,17 @@
-"""The build table of the port's CUDA sources (ops/cuda_build.py) against
-the sources themselves, on the host: no compiler runs here."""
+"""The registry and build table of the port's CUDA kernels
+(ops/cuda_build.py) against the sources themselves, and its one launch
+path with the C function and the stream lookup substituted, on the host: no
+compiler runs here."""
 
+import contextlib
 import ctypes
 import os
 import re
+import types
 
 import pytest
 
 from hiprt_pt_tpu_torch.ops import cuda_build
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _source(name: str) -> str:
@@ -66,7 +68,7 @@ def test_the_emissive_sweep_is_built_and_declared():
     sig = cuda_build.SIGNATURES["emissive_sweep"]
     assert sig["hpt_emissive_sweep"][6:8] == [ctypes.c_int64, ctypes.c_float]
     assert len(sig["hpt_emissive_sweep"]) == 11
-    assert sig["hpt_emissive_sweep_info"] == cuda_build.INFO_ARGS[1:]
+    assert sig["hpt_emissive_sweep_info"] == cuda_build.info_args(0)
     text = _source("emissive_sweep")
     kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", text)
     assert kernels == ["emissive_sweep_kernel"]
@@ -84,59 +86,11 @@ def test_the_principled_bsdf_is_built_and_declared():
     for fn, n_args in (("hpt_principled_eval", 11), ("hpt_principled_sample", 15)):
         assert len(sig[fn]) == n_args
         assert sig[fn][6:8] == [ctypes.c_int, ctypes.c_int64]
-    assert sig["hpt_principled_info"] == cuda_build.INFO_ARGS
+    assert sig["hpt_principled_info"] == cuda_build.info_args(1)
     assert sig["hpt_principled_table_floats"] == []
     text = _source("principled")
     kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", text)
     assert kernels == ["principled_eval_kernel", "principled_sample_kernel"]
-
-
-def test_previous_kernels_stay_out_of_the_package():
-    """The earlier versions kept for side-by-side timings are no source of
-    the package, and define other C names than the package's kernels."""
-    prev = os.path.join(REPO, "previous_kernels")
-    names = {f for f in os.listdir(prev) if f.endswith(".cu")}
-    assert names == {"mm_probe_mma_sync.cu", "trace_lane8log_step.cu",
-                     "trace_incoherent_step.cu", "trace_meganode_packet.cu",
-                     "trace_coherent_block.cu", "dg_probe_l2.cu",
-                     "trace_stream8_packet.cu", "trace_stream8_toptree.cu"}
-    package = {fn for sig in cuda_build.SIGNATURES.values() for fn in sig}
-    for f in names:
-        with open(os.path.join(prev, f)) as fh:
-            defined = _c_functions(fh.read())
-        assert defined and not set(defined) & package
-        assert all(fn.startswith("hpt_prev_") for fn in defined)
-
-
-# the earlier versions' C functions as chip_smoke.py declares them: the
-# package's argument lists, with or without the scratch words; the top-rows
-# variant of trace_stream8 as previous_kernels/sweep_k4.py declares it
-_DG_ARGS = cuda_build.SIGNATURES["probes"]["hpt_dg_probe"]
-_STREAM8 = cuda_build.trace_args(2, True)
-PREVIOUS_ARGS = {
-    "mm_probe_mma_sync": {"hpt_prev_mm_probe": cuda_build.MM_PROBE_ARGS},
-    "dg_probe_l2": {"hpt_prev_dg_probe": _DG_ARGS[:5] + _DG_ARGS[7:]},
-    "trace_lane8log_step": {"hpt_prev_trace_lane8log": cuda_build.trace_args(2, True)},
-    "trace_incoherent_step": {"hpt_prev_trace_incoherent": cuda_build.trace_args(2, False)},
-    "trace_meganode_packet": {"hpt_prev_trace_meganode": cuda_build.trace_args(1, False)},
-    "trace_coherent_block": {"hpt_prev_trace_coherent": cuda_build.trace_args(2, False)},
-    "trace_stream8_packet": {"hpt_prev_trace_stream8": _STREAM8},
-    "trace_stream8_toptree": {"hpt_prev_trace_stream8_toptree":
-                              _STREAM8[:9] + [ctypes.c_int] + _STREAM8[9:]},
-}
-
-
-@pytest.mark.parametrize("name", sorted(PREVIOUS_ARGS))
-def test_previous_kernels_take_the_declared_arguments(name):
-    """An earlier version defines its launch function with as many
-    parameters as the argument list it is loaded with, and one *_info
-    function with the parameters of INFO_ARGS."""
-    with open(os.path.join(REPO, "previous_kernels", name + ".cu")) as f:
-        defined = _c_functions(f.read())
-    (fn, argtypes), = PREVIOUS_ARGS[name].items()
-    assert set(defined) == {fn, fn + "_info"}
-    assert defined[fn] == len(argtypes)
-    assert defined[fn + "_info"] == len(cuda_build.INFO_ARGS)
 
 
 def test_trace_coherent_takes_its_scratch_words():
@@ -145,8 +99,8 @@ def test_trace_coherent_takes_its_scratch_words():
     registers, memory and residency."""
     sig = cuda_build.SIGNATURES["traverse"]
     assert sig["hpt_trace_coherent"] == sig["hpt_trace_incoherent"]
-    assert sig["hpt_trace_coherent_info"] == cuda_build.INFO_ARGS
-    assert len(cuda_build.INFO_ARGS) == 5
+    assert sig["hpt_trace_coherent_info"] == cuda_build.info_args(1)
+    assert len(cuda_build.info_args(1)) == 5
     probes = cuda_build.SIGNATURES["probes"]
     assert len(probes["hpt_dg_probe"]) == 10
     assert len(probes["hpt_dg_probe_info"]) == 7
@@ -155,19 +109,85 @@ def test_trace_coherent_takes_its_scratch_words():
 def test_trace_stream8_is_a_persistent_per_ray_walk():
     """trace_stream8 takes the arguments of trace_lane8log, the per-ray walk
     it shares its template with (a uint64 ray counter between any_hit and
-    the outputs), and reports its registers, memory and residency; its
-    earlier block-packet version is what chip_smoke.py loads beside it, and
-    the top-rows variant is the sweep's (previous_kernels/sweep_k4.py)."""
-    import chip_smoke
+    the outputs), and reports its registers, memory and residency."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse
 
     sig = cuda_build.SIGNATURES["traverse8"]
-    assert sig["hpt_trace_stream8"] == sig["hpt_trace_lane8log"] == _STREAM8
-    assert sig["hpt_trace_stream8_info"] == cuda_build.INFO_ARGS
-    assert cuda_traverse._KERNELS["trace_stream8"] == \
-        cuda_traverse._KERNELS["trace_lane8log"]
+    assert sig["hpt_trace_stream8"] == sig["hpt_trace_lane8log"] == \
+        cuda_build.trace_args(2)
+    assert sig["hpt_trace_stream8_info"] == cuda_build.info_args(1)
+    assert cuda_traverse._SCRATCH_WORDS["trace_stream8"] == \
+        cuda_traverse._SCRATCH_WORDS["trace_lane8log"] == 1
     text = _source("traverse8")
     assert text.count("walk8<kAnyHit, ") == 2
-    assert chip_smoke.EARLIER["trace_stream8"] == ("trace_stream8_packet",
-                                                   "traverse8", True)
-    assert chip_smoke.PREVIOUS["trace_stream8_packet"] == ["-fmad=false"]
+
+
+@pytest.mark.parametrize("kernel", sorted(cuda_build.KERNELS))
+def test_launch_counts_and_raises(kernel, monkeypatch):
+    """launch calls the kernel's C function with the wrapper's arguments and
+    the device's current stream last. A return of 0 counts one launch of
+    that kernel and none of any other; a nonzero return raises, names the
+    kernel and counts nothing."""
+    returns, calls = [0], []
+
+    def c_function(*args):
+        calls.append(args)
+        return returns[0]
+
+    @contextlib.contextmanager
+    def current_stream(device):
+        assert device == "card"
+        yield "stream"
+
+    spec = cuda_build.KERNELS[kernel]
+    lib = types.SimpleNamespace(**{"hpt_" + kernel: c_function})
+    monkeypatch.setattr(cuda_build, "load_libraries", lambda: {spec.source: lib})
+    monkeypatch.setattr(cuda_build, "_current_stream", current_stream)
+    monkeypatch.setattr(cuda_build, "launch_counts",
+                        dict.fromkeys(cuda_build.KERNELS, 0))
+    args = tuple(range(len(spec.args) - 1))
+    cuda_build.launch(kernel, "card", *args)
+    assert calls == [args + ("stream",)]
+    one = {k: int(k == kernel) for k in cuda_build.KERNELS}
+    assert cuda_build.launch_counts == one
+    for err in (2, -1):
+        returns[0] = err
+        with pytest.raises(RuntimeError, match=f"^{kernel}\\b"):
+            cuda_build.launch(kernel, "card", *args)
+        assert cuda_build.launch_counts == one
+    returns[0] = 700
+    with pytest.raises(RuntimeError,
+                       match=f"^{kernel} launch failed: cudaError 700$"):
+        cuda_build.launch(kernel, "card", *args)
+    assert cuda_build.launch_counts == one and len(calls) == 4
+
+
+@pytest.mark.parametrize("kernel", sorted(cuda_build.KERNELS))
+def test_kernel_info_reads_the_info_function(kernel, monkeypatch):
+    """kernel_info calls the kernel's *_info function with the flags that
+    pick the kernel, then the caller's, then the four int pointers, and
+    names the four values; it refuses a wrong number of flags and raises
+    where the call fails."""
+    spec = cuda_build.KERNELS[kernel]
+    returns, calls = [0], []
+
+    def info(*args):
+        calls.append(args[:-4])
+        for i, p in enumerate(args[-4:]):
+            p._obj.value = 10 + i
+        return returns[0]
+
+    lib = types.SimpleNamespace(**{spec.info_fn: info})
+    monkeypatch.setattr(cuda_build, "load_libraries", lambda: {spec.source: lib})
+    flags = tuple(range(3, 3 + len(spec.info_flags)))
+    got = cuda_build.kernel_info(kernel, *flags)
+    assert got == {"registers": 10, "local_bytes": 11, "shared_bytes": 12,
+                   "blocks_per_sm": 13}
+    assert calls == [spec.info_fixed + flags]
+    assert len(cuda_build.SIGNATURES[spec.source][spec.info_fn]) == \
+        len(spec.info_fixed) + len(flags) + 4
+    with pytest.raises(TypeError, match=kernel):
+        cuda_build.kernel_info(kernel, *flags, 0)
+    returns[0] = 1
+    with pytest.raises(RuntimeError, match=f"^{kernel} info failed"):
+        cuda_build.kernel_info(kernel, *flags)

@@ -15,9 +15,10 @@ import torch_parity as tp  # noqa: E402
 
 from hiprt_pt_tpu_torch import interop  # noqa: E402
 from hiprt_pt_tpu_torch.accel.build import build_bvh  # noqa: E402
-from hiprt_pt_tpu_torch.ops import cuda_traverse  # noqa: E402
+from hiprt_pt_tpu_torch.ops import cuda_build, cuda_traverse  # noqa: E402
 from hiprt_pt_tpu_torch.ops import traverse as plain  # noqa: E402
 from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest  # noqa: E402
+from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -248,14 +249,14 @@ def test_inactive_rays_miss_and_tmax_is_respected(scenes):
 def test_wrappers_run_the_plain_version_on_cpu(scenes):
     _, jcam, _, tbvh = scenes
     o, d = _rays("camera", jcam, n=256)
-    cuda_traverse.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     ref = plain.closest_hit(tbvh, _t(o), _t(d), t_min=0.0)
     for fn in (cuda_traverse.trace_coherent, cuda_traverse.trace_incoherent):
         rec = fn(tbvh, _t(o), _t(d), t_min=0.0)
         assert np.array_equal(rec.prim.numpy(), ref.prim.numpy())
         assert np.array_equal(rec.t.numpy(), ref.t.numpy())
-    assert set(cuda_traverse.WALKS) <= set(cuda_traverse.launch_counts)
-    assert not any(cuda_traverse.launch_counts.values())
+    assert set(KERNEL_TABLES) <= set(cuda_build.launch_counts)
+    assert not any(cuda_build.launch_counts.values())
 
 
 def test_single_leaf_scene():

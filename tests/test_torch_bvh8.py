@@ -266,14 +266,15 @@ def test_route_raises_past_every_gate(small):
 
 
 def test_kernel_wrappers_run_traverse8_on_cpu(small):
+    from hiprt_pt_tpu_torch.ops import cuda_build
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
     _v, _f, cam, _jb, tbvh = small
     o, d, t_max, active = _rays("incoherent", cam, seed=9)
     ref = plain.traverse8(tbvh, _t(o), _t(d), 0.0, _t(t_max), _t(active))
-    before = dict(ct.launch_counts)
+    before = dict(cuda_build.launch_counts)
     for fn in (ct.trace_stream8, ct.trace_lane8log):
         rec = fn(tbvh, _t(o), _t(d), 0.0, _t(t_max), _t(active))
         assert torch.equal(rec.prim, ref.prim) and torch.equal(rec.t, ref.t)
     # the plain version is not a launch
-    assert ct.launch_counts == before
+    assert cuda_build.launch_counts == before

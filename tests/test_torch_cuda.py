@@ -17,6 +17,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_parity as tp  # noqa: E402
+from hiprt_pt_tpu_torch.ops import cuda_build  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -57,10 +58,10 @@ def test_kernel_matches_plain(gpu_scene, kernel, any_hit):
 
     _, _, bvh, dev = gpu_scene
     o, d, t_max, active = _rays(dev)
-    before = ct.launch_counts[kernel]
+    before = cuda_build.launch_counts[kernel]
     rk = getattr(ct, kernel)(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert ct.launch_counts[kernel] == before + 1
+    assert cuda_build.launch_counts[kernel] == before + 1
     rp = plain.traverse(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
     act = active.cpu().numpy()
@@ -87,10 +88,10 @@ def test_bvh8_kernel_matches_plain(gpu_scene, kernel, any_hit, coherent):
     o, d, t_max, active = _rays(dev)
     if coherent:
         o, d = (torch.from_numpy(x).to(dev) for x in tp.camera_rays_np_torch(cam, 128, 128))
-    before = ct.launch_counts[kernel]
+    before = cuda_build.launch_counts[kernel]
     rk = getattr(ct, kernel)(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert ct.launch_counts[kernel] == before + 1
+    assert cuda_build.launch_counts[kernel] == before + 1
     rp = plain.traverse8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
     act = active.cpu().numpy()
@@ -134,10 +135,10 @@ def test_meganode_kernel_matches_plain(gpu_cornell, any_hit):
     o, d, t_max = (torch.from_numpy(x.astype(np.float32)).to(dev)
                    for x in (o, d, t_max))
     active = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
-    before = ct.launch_counts["trace_meganode"]
+    before = cuda_build.launch_counts["trace_meganode"]
     rk = ct.trace_meganode(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert ct.launch_counts["trace_meganode"] == before + 1
+    assert cuda_build.launch_counts["trace_meganode"] == before + 1
     rp = plain.traverse_meganode(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     pk, pp = rk.prim.cpu().numpy(), rp.prim.cpu().numpy()
     act = active.cpu().numpy()
@@ -202,19 +203,19 @@ def test_probe_kernels_match_plain(case):
         dtype = torch.int8 if "int8" in case else torch.bfloat16
         groups = int(case.split("-g")[1])
         tab, idx = probes.mm_gate_inputs(300, 100, 200, dtype, seed=4, device=dev)
-        kernel = "mm_probe_kernel"
-        before = probes.launch_counts[kernel]
+        kernel = "mm_probe"
+        before = cuda_build.launch_counts[kernel]
         got = probes.mm_probe_kernel(probes.mm_table(tab), idx, rounds, groups)
         want = probes.mm_probe_plain(tab, idx, rounds, groups)
     else:
         tab, idx = probes.dg_gate_inputs(512, 3, seed=6, device=dev,
                                          per_lane=case == "dg-per-lane")
-        kernel = "dg_probe_kernel"
-        before = probes.launch_counts[kernel]
+        kernel = "dg_probe"
+        before = cuda_build.launch_counts[kernel]
         got = probes.dg_probe_kernel(tab, idx, rounds)
         want = probes.dg_probe_plain(tab, idx, rounds)
     torch.cuda.synchronize()
-    assert probes.launch_counts[kernel] == before + 1
+    assert cuda_build.launch_counts[kernel] == before + 1
     assert got.dtype == torch.float32 and got.shape == (1, 1) and got.is_cuda
     assert float(got) == float(want)
 
@@ -243,11 +244,11 @@ def test_mm_probe_kernel_off_the_tile(shape, dtype, groups):
     dev = torch.device("cuda:0")
     tab, idx = probes.mm_gate_inputs(L, W, NL, dtype, seed=7, device=dev)
     table = probes.mm_table(tab)
-    before = probes.launch_counts["mm_probe_kernel"]
+    before = cuda_build.launch_counts["mm_probe"]
     got = probes.mm_probe_kernel(table, idx, 5, groups)
     again = probes.mm_probe_kernel(table, idx, 5, groups)
     torch.cuda.synchronize()
-    assert probes.launch_counts["mm_probe_kernel"] == before + 2
+    assert cuda_build.launch_counts["mm_probe"] == before + 2
     assert float(got) == float(probes.mm_probe_plain(tab, idx, 5, groups))
     assert torch.equal(got, again)
 
@@ -368,10 +369,10 @@ def test_walk_kernels_ragged_counts(gpu_scene, gpu_cornell, kernel, n, any_hit):
 
     bvh, walk, o, d, t_max, active = _walk_case(kernel, gpu_scene, gpu_cornell,
                                                 n, seed=3)
-    before = ct.launch_counts[kernel]
+    before = cuda_build.launch_counts[kernel]
     rk = getattr(ct, kernel)(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert ct.launch_counts[kernel] == before + 1
+    assert cuda_build.launch_counts[kernel] == before + 1
     rp = walk(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     _hold_against_plain(rk, rp, active, any_hit)
 
@@ -525,11 +526,11 @@ def test_dg_probe_kernel_from_shared_memory(tiles, per_lane, rounds):
     tab, idx = _small_integer_table(S, tiles, per_lane, 12, dev)
     idx = (idx - S * (idx % 5 == 0).int()).contiguous()
     assert probes.dg_plan(S, tiles)[0] != 0
-    before = probes.launch_counts["dg_probe_kernel"]
+    before = cuda_build.launch_counts["dg_probe"]
     got = probes.dg_probe_kernel(tab, idx, rounds)
     again = probes.dg_probe_kernel(tab, idx, rounds)
     torch.cuda.synchronize()
-    assert probes.launch_counts["dg_probe_kernel"] == before + 2
+    assert cuda_build.launch_counts["dg_probe"] == before + 2
     assert float(got) == float(probes.dg_probe_plain(tab, idx, rounds))
     assert torch.equal(got, again)
 
@@ -575,9 +576,6 @@ def test_dg_probe_kernel_past_the_shared_memory_size(per_lane):
 
 # --- trace_stream8 (K4 port): the per-ray BVH8 walk with half-warp refills ---
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
 def _tile_shadow_rays(bvh, cam, dev, width=256, height=128, seed=21):
     """RIS-shaped shadow rays: from the camera hits of a width x height view
     in tile order toward one light point per 128-ray tile (seeded, in the
@@ -619,10 +617,10 @@ def test_stream8_on_the_rays_it_serves(gpu_scene, kind):
                 for x in tp.camera_rays_np_torch(cam, 256, 128))
         _, _, t_max, active = _rays(dev, n=o.shape[0], seed=4)
         any_hit = kind == "camera-any-hit"
-    before = ct.launch_counts["trace_stream8"]
+    before = cuda_build.launch_counts["trace_stream8"]
     rk = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert ct.launch_counts["trace_stream8"] == before + 1
+    assert cuda_build.launch_counts["trace_stream8"] == before + 1
     rp = plain.traverse8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     _hold_against_plain(rk, rp, active, any_hit)
     assert 0.05 < float((rk.prim >= 0).float().mean()) < 1.0
@@ -676,40 +674,19 @@ def test_stream8_equal_t_ties_go_to_the_smaller_prim():
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_stream8_repeatable_and_the_earlier_kernel_agrees(gpu_scene, any_hit):
-    """Two launches on the same rays give the same bits; the earlier
-    block-packet trace_stream8 (previous_kernels/trace_stream8_packet.cu)
-    gives the same bits of t (closest hit) and the same occlusion."""
-    from hiprt_pt_tpu_torch.ops import cuda_build
+def test_stream8_repeatable(gpu_scene, any_hit):
+    """Two launches of trace_stream8 on the same rays give the same bits."""
     from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
-    from hiprt_pt_tpu_torch.ops.traverse import per_ray
 
     _, cam, bvh, dev = gpu_scene
     o, d = (torch.from_numpy(x).to(dev) for x in tp.camera_rays_np_torch(cam, 256, 128))
-    n = o.shape[0]
-    _, _, t_max, active = _rays(dev, n=n, seed=7)
+    _, _, t_max, active = _rays(dev, n=o.shape[0], seed=7)
     first = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
     again = ct.trace_stream8(bvh, o, d, 1e-4, t_max, active, any_hit=any_hit)
-    lib, _log = cuda_build.load_source(
-        os.path.join(REPO, "previous_kernels", "trace_stream8_packet.cu"),
-        ["-fmad=false"], {"hpt_prev_trace_stream8": cuda_build.trace_args(2, True)})
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
-    err = lib.hpt_prev_trace_stream8(
-        bvh.nodes8l.data_ptr(), bvh.leaf_rows8.data_ptr(), o.data_ptr(), d.data_ptr(),
-        per_ray(1e-4, n, dev).data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
-        int(any_hit), counter.data_ptr(), t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
-    assert err == 0
     for a, b in zip((first.t, first.prim, first.u, first.v),
                     (again.t, again.prim, again.u, again.v)):
         assert torch.equal(a, b)
-    assert torch.equal(first.prim >= 0, prim >= 0)
-    if not any_hit:
-        assert torch.equal(first.t, t)
 
 
 @pytest.fixture(scope="module")
@@ -776,7 +753,6 @@ def test_renderer_frame_loop_on_the_card(gpu_envmap, monkeypatch):
     max_sample_count, profile() (the live state left as it was),
     kernel_stats() from the kernel library, the images; and the image
     against the CPU's."""
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.render import renderer as renderer_mod
     from hiprt_pt_tpu_torch.render.renderer import Renderer
 
@@ -784,9 +760,9 @@ def test_renderer_frame_loop_on_the_card(gpu_envmap, monkeypatch):
     r = Renderer(scene, cam, 128, 64, options=opts, settings=settings,
                  world=world, bvh=bvh, seed=42)
     assert r.frame_render_done() in (True, False)
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     r.step(block=True)
-    assert ct.launch_counts["trace_meganode"] == 19
+    assert cuda_build.launch_counts["trace_meganode"] == 19
     assert r.frame_render_done()
     # a frame whose last queued work is about a second of device sleep is
     # unfinished when step() returns
@@ -886,13 +862,13 @@ def test_alpha_march_kinds_match_plain(gpu_gltf, kernel):
             assert torch.equal(rk.t, rp.t)
         return rk
 
-    before = ct.launch_counts[kernel]
+    before = cuda_build.launch_counts[kernel]
     state = rng.seed(torch.arange(o.shape[0], device=dev), 0, 5)
     s_k, occ_k = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
                                       active=active, trace=held)
     s_p, occ_p = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
                                       active=active, trace=plain.traverse)
-    assert ct.launch_counts[kernel] == before + len(calls)
+    assert cuda_build.launch_counts[kernel] == before + len(calls)
     assert calls[0] and not any(calls[1:]) and len(calls) >= 3
     assert torch.equal(occ_k, occ_p) and torch.equal(s_k, s_p)
     assert 0 < int(occ_k.sum()) < int(active.sum())
@@ -930,14 +906,14 @@ def test_alpha_march_on_the_bvh8_kernels_in_their_spans(gpu_gltf, kernel):
         return rk
 
     spans.reset()
-    before = ct.launch_counts[kernel]
+    before = cuda_build.launch_counts[kernel]
     state = rng.seed(torch.arange(o.shape[0], device=dev), 0, 5)
     with spans.step(dev) as sid:
         s_k, occ_k = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
                                           active=active, trace=held)
     s_p, occ_p = plain.occluded_alpha(bvh, scene, o, d, state, t_max=t_max,
                                       active=active, trace=plain.traverse8)
-    assert ct.launch_counts[kernel] == before + len(calls) and len(calls) >= 3
+    assert cuda_build.launch_counts[kernel] == before + len(calls) and len(calls) >= 3
     assert torch.equal(occ_k, occ_p) and torch.equal(s_k, s_p)
     assert 0 < int(occ_k.sum()) < int(active.sum())
     spans.flush()
@@ -1000,21 +976,20 @@ def test_cli_main_on_the_card(tmp_path):
         pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
     from hiprt_pt_tpu_torch.app.cli import main
     from hiprt_pt_tpu_torch.assets.image_io import read_hdr
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
     glb = tp.write_cornell_glb(str(tmp_path / "c.glb"), 2.0)
     common = [glb, "--w=128", "--h=64", "--bounces=2", "--spp-per-frame=1",
               "--denoise", "--strategy=restir"]
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     stats = {}
     assert main(common + ["--samples=2", f"--out={tmp_path}/g.png",
                           f"--hdr-out={tmp_path}/g.hdr",
                           f"--checkpoint={tmp_path}/g"], stats) == 0
-    assert ct.launch_counts["trace_meganode"] > 0 and stats["samples"] == 2
-    launches = dict(ct.launch_counts)
+    assert cuda_build.launch_counts["trace_meganode"] > 0 and stats["samples"] == 2
+    launches = dict(cuda_build.launch_counts)
     assert main(common + ["--samples=2", "--cpu", f"--out={tmp_path}/c.png",
                           f"--hdr-out={tmp_path}/c.hdr"]) == 0
-    assert ct.launch_counts == launches
+    assert cuda_build.launch_counts == launches
     got, want = read_hdr(f"{tmp_path}/g.hdr"), read_hdr(f"{tmp_path}/c.hdr")
     close = np.all(np.abs(got - want) <= 1e-3 + 1e-3 * np.abs(want), axis=-1)
     assert close.mean() >= 0.98
@@ -1075,7 +1050,6 @@ def test_viewer_views_on_the_card_match_the_cpu(tmp_path):
     from hiprt_pt_tpu_torch.assets.image_io import decode_png
     from hiprt_pt_tpu_torch.assets.loader import load_scene_file
     from hiprt_pt_tpu_torch.core.state import init_render_state
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.render.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
     from hiprt_pt_tpu_torch.render.renderer import Renderer
@@ -1086,10 +1060,10 @@ def test_viewer_views_on_the_card_match_the_cpu(tmp_path):
         scene, cam = load_scene_file(glb, aspect=2.0, device=dev)
         renderers.append(Renderer(scene, cam, 64, 32))
     card, cpu = renderers
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     card.step(block=True)
     card.step(block=True)
-    assert ct.launch_counts["trace_meganode"] > 0
+    assert cuda_build.launch_counts["trace_meganode"] > 0
     save_checkpoint(str(tmp_path / "st"), card.state)
     cpu.state = load_checkpoint(str(tmp_path / "st"),
                                 init_render_state(64, 32, device="cpu"))
@@ -1234,12 +1208,11 @@ def _sweep_equals_plain(rows, o, d, active, t_min=1e-5):
     tensors: t and slot equal on every lane. Returns the kernel's slots."""
     from hiprt_pt_tpu_torch.lights.light_sampling import _closest_emissive_hit_plain
     from hiprt_pt_tpu_torch.ops import cuda_sweep
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
-    before = ct.launch_counts["emissive_sweep"]
+    before = cuda_build.launch_counts["emissive_sweep"]
     tk, sk = cuda_sweep.emissive_sweep(rows, o, d, active, t_min)
     torch.cuda.synchronize()
-    assert ct.launch_counts["emissive_sweep"] == before + 1
+    assert cuda_build.launch_counts["emissive_sweep"] == before + 1
     tp_, sp = _closest_emissive_hit_plain(rows, o, d, active, t_min)
     assert tk.dtype == torch.float32 and sk.dtype == torch.int64
     assert torch.equal(sk, sp)
@@ -1309,12 +1282,11 @@ def test_emissive_sweep_ties_degenerate_rows_and_t_min():
 
 def test_emissive_sweep_rejects_what_the_kernel_does_not_take(gpu_scene):
     from hiprt_pt_tpu_torch.ops import cuda_sweep
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
 
     scene, _, _, dev = gpu_scene
     rows = scene.emissive_rows
     o, d, active = _rays_at(rows, 256, seed=1, dev=dev)
-    before = ct.launch_counts["emissive_sweep"]
+    before = cuda_build.launch_counts["emissive_sweep"]
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sweep.emissive_sweep(rows.cpu(), o.cpu(), d.cpu(), active.cpu())
     with pytest.raises(ValueError):
@@ -1329,8 +1301,8 @@ def test_emissive_sweep_rejects_what_the_kernel_does_not_take(gpu_scene):
         cuda_sweep.emissive_sweep(rows[:, :16], o, d, active)
     with pytest.raises(TypeError):
         cuda_sweep.emissive_sweep(rows, o, d, active.to(torch.uint8))
-    assert ct.launch_counts["emissive_sweep"] == before
-    info = cuda_sweep.kernel_info()
+    assert cuda_build.launch_counts["emissive_sweep"] == before
+    info = cuda_build.kernel_info("emissive_sweep")
     assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
 
 
@@ -1345,7 +1317,6 @@ def test_render_steps_sweep_once_a_bounce_and_keep_their_bits(gpu_scene,
     from hiprt_pt_tpu_torch.core import settings as ts
     from hiprt_pt_tpu_torch.lights import light_sampling as tls
     from hiprt_pt_tpu_torch.ops import cuda_sweep
-    from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
     from hiprt_pt_tpu_torch.parallel import jobs
     from hiprt_pt_tpu_torch.render.renderer import Renderer
     from hiprt_pt_tpu_torch.utils import spans
@@ -1359,12 +1330,12 @@ def test_render_steps_sweep_once_a_bounce_and_keep_their_bits(gpu_scene,
         r = Renderer(scene, cam, 256, 128, options=opts, settings=settings,
                      bvh=bvh, seed=42)
         spans.reset()
-        ct.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         r.step()
         r.step()
         torch.cuda.synchronize()
         spans.flush()
-        return r, dict(ct.launch_counts), spans.records()
+        return r, dict(cuda_build.launch_counts), spans.records()
 
     with monkeypatch.context() as m:
         m.setattr(cuda_sweep, "emissive_sweep",

@@ -24,7 +24,7 @@ import torch_parity as tp  # noqa: E402
 from hiprt_pt_tpu_torch import interop  # noqa: E402
 from hiprt_pt_tpu_torch.accel.build import (MAX_MEGANODE_ROWS,  # noqa: E402
                                             build_bvh)
-from hiprt_pt_tpu_torch.ops import cuda_traverse  # noqa: E402
+from hiprt_pt_tpu_torch.ops import cuda_build, cuda_traverse  # noqa: E402
 from hiprt_pt_tpu_torch.ops import traverse as plain  # noqa: E402
 from hiprt_pt_tpu_torch.ops.intersect import brute_force_closest  # noqa: E402
 
@@ -212,7 +212,7 @@ def test_route_picks_the_meganode_kernel_only_for_a_kept_table(cornell):
 def test_wrapper_runs_the_plain_walk_on_cpu(cornell):
     _v, _f, jcam, _jb, tbvh = cornell
     o, d, t_max, active = _rays("camera", jcam, n=256)
-    cuda_traverse.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     for any_hit in (False, True):
         ref = plain.traverse_meganode(tbvh, _t(o), _t(d), 1e-4, _t(t_max),
                                       _t(active), any_hit=any_hit)
@@ -220,7 +220,7 @@ def test_wrapper_runs_the_plain_walk_on_cpu(cornell):
                                            _t(active), any_hit=any_hit)
         assert np.array_equal(rec.prim.numpy(), ref.prim.numpy())
         assert np.array_equal(rec.t.numpy(), ref.t.numpy())
-    assert cuda_traverse.launch_counts["trace_meganode"] == 0
+    assert cuda_build.launch_counts["trace_meganode"] == 0
 
 
 def test_walk_raises_on_a_tree_deeper_than_its_stack(cornell):

@@ -15,6 +15,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from hiprt_pt_tpu_torch.ops import cuda_build
 from hiprt_pt_tpu_torch.probes import r5probe2 as probes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,10 +69,10 @@ def test_mm_plain_matches_tpu_kernel(tpu_probe, dtype, groups):
     assert got.shape == (1, 1)
     assert float(got) == want
     # the wrapper on CPU tensors is the plain version and launches nothing
-    before = dict(probes.launch_counts)
+    before = dict(cuda_build.launch_counts)
     assert float(probes.mm_probe_kernel(probes.mm_table(tab), idx, MM_ROUNDS,
                                         groups)) == want
-    assert probes.launch_counts == before
+    assert cuda_build.launch_counts == before
 
 
 @pytest.mark.parametrize("table", ["integer", "float"])
@@ -144,10 +145,10 @@ def test_dg_plan(S, tiles, plan):
 def test_dg_probe_kernel_on_the_cpu_ignores_the_plan():
     tab, idx = probes.dg_gate_inputs(DG_S, 2, seed=5, device="cpu")
     want = float(probes.dg_probe_plain(tab, idx, DG_ROUNDS))
-    before = dict(probes.launch_counts)
+    before = dict(cuda_build.launch_counts)
     for plan in (None, (0, 0), (2, 64)):
         assert float(probes.dg_probe_kernel(tab, idx, DG_ROUNDS, plan)) == want
-    assert probes.launch_counts == before
+    assert cuda_build.launch_counts == before
 
 
 @pytest.mark.parametrize("probe", ["mm-int8", "mm-bf16", "dg"])

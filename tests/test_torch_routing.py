@@ -27,6 +27,7 @@ import torch_parity as tp  # noqa: E402
 from hiprt_pt_tpu_torch.accel.build import (Lane8Sizes, build_bvh,  # noqa: E402
                                             lane8_sizes)
 from hiprt_pt_tpu_torch.core import settings as ts  # noqa: E402
+from hiprt_pt_tpu_torch.ops import cuda_build  # noqa: E402
 from hiprt_pt_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
 from hiprt_pt_tpu_torch.ops import routing  # noqa: E402
 from hiprt_pt_tpu_torch.ops import traverse as plain  # noqa: E402
@@ -72,8 +73,10 @@ def test_tracer_without_kernels_is_the_plain_walk(scenes, kind):
         assert routing.tracer(bvh, coherent) is getattr(ct, kernel)
         walk = routing.tracer(bvh, coherent, use_kernels=False)
         assert walk is getattr(plain, routing.PLAIN_WALKS[kernel])
-    assert set(routing.PLAIN_WALKS) == set(routing.KERNEL_TABLES) == set(ct.WALKS)
-    assert set(ct.WALKS) < set(ct.launch_counts)
+    assert set(routing.PLAIN_WALKS) == set(routing.KERNEL_TABLES) == {
+        k for k, v in cuda_build.KERNELS.items()
+        if v.source in ("traverse", "traverse8")}
+    assert set(routing.KERNEL_TABLES) < set(cuda_build.launch_counts)
 
 
 def _render(scene, cam, bvh, use_kernels):
@@ -98,7 +101,7 @@ def test_render_without_kernels_equals_the_render_with(scenes, kind, monkeypatch
     is replaced by one that raises), counts no launch, and gives the image
     of use_pallas_traversal=True bit for bit."""
     scene, cam, bvh = scenes[kind]
-    before = dict(ct.launch_counts)
+    before = dict(cuda_build.launch_counts)
     with_kernels, rays_with = _render(scene, cam, bvh, True)
 
     def refuse(*_a, **_k):
@@ -107,7 +110,7 @@ def test_render_without_kernels_equals_the_render_with(scenes, kind, monkeypatch
     for kernel in routing.PLAIN_WALKS:
         monkeypatch.setattr(ct, kernel, refuse)
     without, rays_without = _render(scene, cam, bvh, False)
-    assert ct.launch_counts == before
+    assert cuda_build.launch_counts == before
     assert (with_kernels.sum(-1) > 0).mean() > 0.1
     assert np.array_equal(with_kernels, without)
     assert rays_with == rays_without

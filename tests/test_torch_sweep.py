@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from hiprt_pt_tpu_torch.lights import light_sampling as tls
-from hiprt_pt_tpu_torch.ops import cuda_sweep
-from hiprt_pt_tpu_torch.ops import cuda_traverse as ct
+from hiprt_pt_tpu_torch.ops import cuda_build, cuda_sweep
+from hiprt_pt_tpu_torch.ops.routing import KERNEL_TABLES
 from hiprt_pt_tpu_torch.utils import spans
 
 W, H = 32, 16
@@ -67,10 +67,10 @@ def test_cpu_tensors_take_the_plain_sweep(box, monkeypatch):
         return plain(*args)
 
     monkeypatch.setattr(tls, "_closest_emissive_hit_plain", counted)
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t, slot = tls.closest_emissive_hit(scene, o, d, active=active)
     assert len(calls) == 1
-    assert ct.launch_counts["emissive_sweep"] == 0
+    assert cuda_build.launch_counts["emissive_sweep"] == 0
     tp_, sp = plain(scene.emissive_rows, o, d, active)
     assert torch.equal(t, tp_) and torch.equal(slot, sp)
     assert slot.dtype == torch.int64 and (slot >= 0).float().mean() > 0.2
@@ -80,10 +80,10 @@ def test_cpu_tensors_take_the_plain_sweep(box, monkeypatch):
 def test_the_wrapper_refuses_cpu_tensors(box):
     scene = box[0]
     o, d, active = _rays(scene, n=16)
-    ct.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sweep.emissive_sweep(scene.emissive_rows, o, d, active)
-    assert ct.launch_counts["emissive_sweep"] == 0
+    assert cuda_build.launch_counts["emissive_sweep"] == 0
 
 
 def test_no_emitters_no_sweep_and_no_span(box):
@@ -148,8 +148,8 @@ def test_chip_smoke_holds_the_sweep_to_its_count(box, tag, sweeps):
     scene = box[0]
     per_kind = chip_smoke.frame_launches(tag, scene)
     assert per_kind.get((tag, "emissive_sweep", "sweep"), 0) == sweeps
-    walks = {k: v for k, v in per_kind.items() if k[1] in ct.WALKS}
+    walks = {k: v for k, v in per_kind.items() if k[1] in KERNEL_TABLES}
     assert walks == chip_smoke.launches_per_frame(tag, scene)
     kernels = chip_smoke.path_kernels(tag)
     assert ("emissive_sweep" in kernels) == bool(sweeps)
-    assert kernels <= set(ct.launch_counts)
+    assert kernels <= set(cuda_build.launch_counts)
